@@ -1,14 +1,16 @@
-"""Camera, patch and patch-grid geometry (frozen dataclasses).
+"""Camera, patch and patch-grid geometry (frozen dataclasses), and the
+command-line arguments of the ported entry points.
 
-Same fields and defaults as the JAX package's configuration (reference
-utils/args.py:11-15, 42 and utils/postprocessing_loss.py:135-137).
+Same fields, flags and defaults as the JAX package's configuration
+(reference utils/args.py:3-64, utils/postprocessing_loss.py:135-137).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +63,70 @@ class GridConfig:
     @property
     def num_tokens(self) -> int:
         return self.H_patches * self.W_patches
+
+
+def get_args(mode: str, argv: Optional[list] = None) -> argparse.Namespace:
+    """The argument set of one entry mode, flag for flag with the JAX
+    package's ``get_args``. Ported modes: ``global_train``. ``--cuda`` names
+    the device the run uses. Pass ``argv=[]`` for the defaults."""
+    if mode != "global_train":
+        raise ValueError(f"mode {mode!r} is not ported; ported: 'global_train'")
+    parser = argparse.ArgumentParser()
+    add = parser.add_argument
+    add('--cuda', type=str, default='cuda:0', help='device of the run')
+    add('--model_path', type=str, default='./pretrained_weights', help='path of model weights')
+    add('--img_size', type=int, nargs=2, default=[147, 147], help='image size')
+    add('--big_img_size', type=int, nargs=2, default=[587, 587], help='big image size')
+    add('--R', type=int, default=21, help='patch size')
+    add('--w', type=float, default=1, help='w in loss function')
+    add('--alpha_lambda', type=float, default=5e-3, help='rate for lambda in ridge regression')
+    add('--cam_params', type=dict,
+        default={'s': 0.1104, 'rho_1': 10.0, 'rho_2': 10.2,
+                 'sigma_cam': 0.003, 'pixel_pitch': 5.86e-6},
+        help='camera parameters')
+    add('--mag', type=float, default=4, help='magnification factor')
+
+    add('--stride', type=int, default=2, help='stride')
+    add('--data_path', type=str, default='./data/data_train_val', help='path of dataset')
+    add('--log_path', type=str, default='./logs', help='path of logs')
+    add('--epoch_num', type=int, default=350, help='number of epochs')
+    add('--learning_rate', type=float, default=1e-4, help='initial learning rate for late training')
+    add('--batch_size', type=int, default=8, help='number of batch size')
+    add('--gamma_color', type=float, nargs=3, default=[1.0, 0.1, 0.1], help='weight for color error')
+    add('--gamma_color_cons', type=float, nargs=3, default=[0.2, 0.1, 0.05], help='weight for color consistency error')
+    add('--gamma_bndry_cons', type=float, nargs=3, default=[0.05, 0.05, 0.02], help='weight for boundary consistency error')
+    add('--gamma_smthns', type=float, nargs=3, default=[0.005, 0.1, 0.002], help='weight for smothness error')
+    add('--gamma_smthns_cons', type=float, nargs=3, default=[0.005, 0.1, 0.002], help='weight for smothness consistency error')
+    add('--gamma_bndry_loc', type=float, nargs=3, default=[0.0001, 0.05, 0.0001], help='weight for boundary localization error')
+    add('--gamma_depth', type=float, nargs=3, default=[0.0001, 0.05, 0.5], help='weight for depth error')
+    add('--dynamic_epoch', type=int, nargs=3, default=[30, 100, 200], help='key epoch of dynamic scheduling')
+    add('--input_size', type=int, default=38, help='input layer size')
+    add('--output_size', type=int, default=12, help='output layer size')
+    add('--train_subset', type=int, default=0, help='cap the train split to the first N samples (0 = all)')
+    add('--val_batches', type=int, default=0, help='cap the per-epoch val sweep to N batches (0 = full sweep)')
+    add('--skip_val', action='store_true', help='skip the val sweep; best-checkpoint selection falls back to the mean TRAIN loss')
+    add('--snapshot_steps', type=int, default=50, help='full train-state snapshot every N optimizer steps (0 = epoch boundaries only)')
+    add('--attn_impl', type=str, default='xla', choices=['xla', 'flash'],
+        help="global-stage attention: 'xla' (matmul + softmax, attention-probability "
+             "dropout) or 'flash' (the hand-written flash-attention kernels, no "
+             "attention-probability dropout)")
+    add('--time_budget_s', type=int, default=0, help='exit cleanly (snapshot + resume marker) after N seconds of training (0 = no budget)')
+    add('--init_from', type=str, default=None, help='warm-start the model from this .pth checkpoint (optimizer/scheduler state starts fresh)')
+    add('--w_variant', action='store_true', help="train the 'w'-variant global stage: depth term on hard wedge-side masks; saved under *_w names")
+    return parser.parse_args(argv)
+
+
+def cam_from_args(args: argparse.Namespace) -> CamConfig:
+    cp = args.cam_params
+    return CamConfig(s=cp['s'], rho_1=cp['rho_1'], rho_2=cp['rho_2'],
+                     sigma_cam=cp['sigma_cam'], pixel_pitch=cp['pixel_pitch'])
+
+
+def patch_from_args(args: argparse.Namespace) -> PatchConfig:
+    return PatchConfig(R=args.R, w=args.w, alpha_lambda=args.alpha_lambda,
+                       stride=getattr(args, 'stride', 2), mag=args.mag)
+
+
+def grid_from_args(args: argparse.Namespace, big: bool = False) -> GridConfig:
+    size = args.big_img_size if big else args.img_size
+    return GridConfig(H=size[0], W=size[1], R=args.R, stride=getattr(args, 'stride', 2))

@@ -6,19 +6,52 @@ per image).
 Linear 38 -> 128, a fixed 2-D sin/cos positional encoding scaled by the
 patch stride, post-norm encoder layers (d_model 128, 8 heads, FFN 256 relu,
 LayerNorm eps 1e-5), a final norm and a linear 128 -> 12 head (~1.1 M
-parameters). Attention is exact softmax attention written as two
-``torch.matmul`` and a softmax. Inference only: no dropout. Module names
-follow the reference state dict (``in_src_projection``,
-``encoder.layers.{i}.self_attn.in_proj_weight``, ``generator``, ...).
+parameters). Module names follow the reference state dict
+(``in_src_projection``, ``encoder.layers.{i}.self_attn.in_proj_weight``,
+``generator``, ...).
+
+Attention is exact softmax attention, by ``attn_impl``: ``"xla"`` (the
+default, named after the JAX package's option) writes it as two
+``torch.matmul`` and a softmax; ``"flash"`` runs the flash-attention
+kernels (``ops/flash_attention.py``) and, as the JAX package's
+``flash_attention_fn``, drops no attention probabilities.
+
+``forward(src)`` is inference. ``forward(src, train=True, seed=s)`` is the
+training forward (the JAX package's ``train=True``): dropout at rate
+``dropout``, its masks drawn from seeds folded from ``s`` (so a recomputed
+layer draws the same masks), and every layer under activation
+checkpointing when gradients are on (the JAX package's per-layer
+``nn.remat``). As Flax's attention does by default, one (L, L) dropout mask
+of the attention probabilities is shared across the batch and the heads;
+the residual and feed-forward dropouts are element-wise.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.flash_attention import flash_attention
+from ..utils.seeding import fold_in, generator
+
+ATTN_IMPLS = ("xla", "flash")
+
+
+def keyed_dropout(x, rate: float, seed: Optional[int], shape=None):
+    """Dropout of ``x`` at ``rate`` with the mask drawn from ``seed`` (none
+    when ``seed`` is None or the rate is 0); ``shape`` broadcasts one mask
+    over the leading dimensions of ``x``. Kept entries scale by 1/(1-rate)."""
+    if seed is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(shape or x.shape, generator=generator(seed, x.device),
+                   device=x.device, dtype=x.dtype)
+    return torch.where(u < keep, x / keep, 0.0)
 
 
 def sincos_2d_positional_encoding(d_model: int, max_len: int, stride: int) -> np.ndarray:
@@ -39,55 +72,85 @@ def sincos_2d_positional_encoding(d_model: int, max_len: int, stride: int) -> np
 class SelfAttention(nn.Module):
     """Multi-head self-attention with packed q/k/v projections."""
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
+                 attn_impl: str = "xla"):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         self.nhead = nhead
+        self.dropout = dropout
+        self.attn_impl = attn_impl
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x):
+    def forward(self, x, seed: Optional[int] = None):
         B, L, D = x.shape
         hd = D // self.nhead
         qkv = torch.nn.functional.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (t.reshape(B, L, self.nhead, hd).transpose(1, 2)
                    for t in qkv.split(D, dim=-1))              # (B, heads, L, hd)
-        logits = torch.matmul(q / math.sqrt(hd), k.transpose(-1, -2))
-        probs = torch.softmax(logits, dim=-1)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, D)
-        return self.out_proj(out)
+        if self.attn_impl == "flash":
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  1.0 / math.sqrt(hd))
+        else:
+            logits = torch.matmul(q / math.sqrt(hd), k.transpose(-1, -2))
+            probs = torch.softmax(logits, dim=-1)
+            probs = keyed_dropout(probs, self.dropout, seed, shape=(1, 1, L, L))
+            out = torch.matmul(probs, v)
+        return self.out_proj(out.transpose(1, 2).reshape(B, L, D))
 
 
 class EncoderLayer(nn.Module):
-    """Post-norm layer: x = LN(x + SelfAttn(x)); x = LN(x + W2 relu(W1 x))."""
+    """Post-norm layer: x = LN(x + Drop(SelfAttn(x)));
+    x = LN(x + Drop(W2 Drop(relu(W1 x)))). Dropout only with a seed."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 layer_norm_eps: float):
+                 layer_norm_eps: float, dropout: float = 0.0,
+                 attn_impl: str = "xla"):
         super().__init__()
-        self.self_attn = SelfAttention(d_model, nhead)
+        self.dropout = dropout
+        self.self_attn = SelfAttention(d_model, nhead, dropout, attn_impl)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=layer_norm_eps)
         self.norm2 = nn.LayerNorm(d_model, eps=layer_norm_eps)
 
-    def forward(self, x):
-        x = self.norm1(x + self.self_attn(x))
-        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+    def forward(self, x, seed: Optional[int] = None):
+        if seed is None:
+            x = self.norm1(x + self.self_attn(x))
+            return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+        p = self.dropout
+        attn = keyed_dropout(self.self_attn(x, fold_in(seed, 0)), p, fold_in(seed, 1))
+        x = self.norm1(x + attn)
+        h = keyed_dropout(torch.relu(self.linear1(x)), p, fold_in(seed, 2))
+        h = keyed_dropout(self.linear2(h), p, fold_in(seed, 3))
+        return self.norm2(x + h)
 
 
 class Encoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, nhead: int,
-                 dim_feedforward: int, layer_norm_eps: float):
+                 dim_feedforward: int, layer_norm_eps: float,
+                 dropout: float = 0.0, attn_impl: str = "xla"):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, dim_feedforward, layer_norm_eps)
+            EncoderLayer(d_model, nhead, dim_feedforward, layer_norm_eps,
+                         dropout, attn_impl)
             for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=layer_norm_eps)
 
-    def forward(self, x):
-        for layer in self.layers:
-            x = layer(x)
+    def forward(self, x, train: bool = False, seed: int = 0):
+        if not train:
+            for layer in self.layers:
+                x = layer(x)
+            return self.norm(x)
+        for i, layer in enumerate(self.layers):
+            s = fold_in(seed, i)
+            if torch.is_grad_enabled():
+                x = checkpoint(layer, x, s, use_reentrant=False)
+            else:
+                x = layer(x, s)
         return self.norm(x)
 
 
@@ -99,15 +162,17 @@ class GlobalStage(nn.Module):
                  in_parameter_size: int = 38, out_parameter_size: int = 12,
                  d_model: int = 128, nhead: int = 8,
                  num_encoder_layers: int = 8, dim_feedforward: int = 256,
-                 layer_norm_eps: float = 1e-5):
+                 layer_norm_eps: float = 1e-5, dropout: float = 0.1,
+                 attn_impl: str = "xla"):
         super().__init__()
         self.in_src_projection = nn.Linear(in_parameter_size, d_model)
         self.encoder = Encoder(num_encoder_layers, d_model, nhead,
-                               dim_feedforward, layer_norm_eps)
+                               dim_feedforward, layer_norm_eps, dropout,
+                               attn_impl)
         self.generator = nn.Linear(d_model, out_parameter_size)
         pe = sincos_2d_positional_encoding(d_model, max_len, stride)
         self.register_buffer("pe", torch.from_numpy(pe), persistent=False)
 
-    def forward(self, src):
+    def forward(self, src, train: bool = False, seed: int = 0):
         x = self.in_src_projection(src) + self.pe[None, :src.shape[1], :]
-        return self.generator(self.encoder(x))
+        return self.generator(self.encoder(x, train, seed))

@@ -2,7 +2,7 @@
 plain C interface, at first use, and load it with ctypes.
 
 Each ``.cu`` source is compiled by its own ``nvcc`` process, all started
-together, then linked into ``_build/libwedge_<hash>.so``. The hash covers
+together, then linked into ``_build/libkernels_<hash>.so``. The hash covers
 the sources, the header and the flags, so an edited source rebuilds. Needs
 ``nvcc`` (on PATH, under $CUDA_HOME, or /usr/local/cuda); no PyTorch
 headers, no ninja.
@@ -22,7 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("wedge_colors.cu", "wedge_render.cu")
+SOURCES = ("wedge_colors.cu", "wedge_render.cu", "flash_attn_fwd.cu",
+           "flash_attn_bwd.cu")
 HEADERS = ("wedge_common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -31,6 +32,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "wedge_colors_launch": [_P, _P, _P, _I, _I, _F, _F, _P],
     "wedge_render_launch": [_P] * 9 + [_I, _I, _I, _F, _F, _I] + [_F] * 8 + [_P],
+    "flash_attn_fwd_launch": [_P] * 5 + [_I, _I, _F, _P],
+    "flash_attn_bwd_dkv_launch": [_P] * 8 + [_I, _I, _F, _P],
+    "flash_attn_bwd_dq_launch": [_P] * 7 + [_I, _I, _F, _P],
 }
 
 
@@ -104,7 +108,7 @@ def load_library() -> Library:
     found in ``_build/`` from an earlier build of the same sources)."""
     global _library
     if _library is None:
-        target = BUILD_DIR / f"libwedge_{_digest()}.so"
+        target = BUILD_DIR / f"libkernels_{_digest()}.so"
         t0 = time.perf_counter()
         log = "" if target.exists() else _compile(target)
         seconds = time.perf_counter() - t0 if log else 0.0

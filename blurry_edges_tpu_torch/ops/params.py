@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from .wedge import params2etas
+
 PI = math.pi
 TWO_PI = 2.0 * math.pi
 
@@ -36,6 +38,16 @@ def normalize_token_features(params, colors):
         params[..., 8:10] - 0.5,
         (colors_flat - 0.5) * 2.0,
     ], dim=-1)
+
+
+def denormalize_global_train(est):
+    """Training-path denormalization of (..., 12) global outputs (reference
+    global_training.py:141-145) -> (xy_angles (..., 8), etas (..., 4)), the
+    etas already mapped through params2etas(coef + 0.5)."""
+    xy = est[..., :4] * 3.0
+    angles = torch.remainder((est[..., 4:8] + 1.0) * PI, TWO_PI)
+    etas = params2etas(est[..., 8:] + 0.5)
+    return torch.cat([xy, angles], dim=-1), etas
 
 
 def denormalize_global_eval(est):

@@ -114,6 +114,12 @@ def boundary_distance_field(dists):
                        torch.where(d0.abs() < d1.abs(), d0.abs(), d1.abs()))
 
 
+def boundary_distance_field_flat(d1, d2):
+    """boundary_distance_field on flat fields d1, d2 (..., N) -> (..., N)."""
+    return torch.where(d2 >= 0, d2,
+                       torch.where(d1.abs() < d2.abs(), d1.abs(), d2.abs()))
+
+
 def normalized_gaussian(v, delta: float = 0.07):
     """Boundary-proximity bump exp(-v^2 / delta^2)."""
     return torch.exp(-(v**2) / delta**2)
@@ -138,6 +144,17 @@ def depth_masks(dists, hard: bool = False):
     m1 = (normalized_gaussian(d0) > 0.5).to(torch.int32)
     m2 = (normalized_gaussian(d1) > 0.5).to(torch.int32) * 2
     return torch.where((m2 == 2) | (d1 >= 0), m2, m1)
+
+
+def depth_masks_flat(d1, d2, hard: bool = False):
+    """depth_masks on flat fields d1, d2 (..., N) -> int32 (..., N)."""
+    if hard:
+        m1 = (d1 > 0).to(torch.int32)
+        m2 = (d2 > 0).to(torch.int32) * 2
+        return torch.where(m2 == 2, m2, m1)
+    m1 = (normalized_gaussian(d1) > 0.5).to(torch.int32)
+    m2 = (normalized_gaussian(d2) > 0.5).to(torch.int32) * 2
+    return torch.where((m2 == 2) | (d2 >= 0), m2, m1)
 
 
 def _mm3(a, b):

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..config import PatchConfig
+from ._launch import check, device_type, raise_on, stream
 from .dfd import DfDSolver
 from .params import wrap_local_params
 from .wedge import (boundary_map, dists2indicators, indicator_flat,
@@ -32,34 +33,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
-
-
-def _device_type(*tensors) -> str:
-    types = {t.device.type for t in tensors}
-    if len(types) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(types)}")
-    kind = types.pop()
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device type {kind!r}")
-    return kind
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(rc: int, kernel: str):
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
 
 
 # --------------------------------------------------------------- colors
@@ -90,12 +63,12 @@ def wedge_colors(params, pixels, patch_cfg: PatchConfig):
     """Per-patch ridge colors: params (P, 10) raw local-stage outputs,
     pixels (P, R, R, 3) -> (P, 3, 3) float32. CUDA tensors: the
     wedge_colors kernel; CPU tensors: ``wedge_colors_plain``."""
-    if _device_type(params, pixels) == "cpu":
+    if device_type(params, pixels) == "cpu":
         return wedge_colors_plain(params, pixels, patch_cfg)
     R = patch_cfg.R
     P = params.shape[0]
-    _check("params", params, (P, 10))
-    _check("pixels", pixels, (P, R, R, 3))
+    check("params", params, (P, 10))
+    check("pixels", pixels, (P, R, R, 3))
     from ._build import load_library
 
     lib = load_library().cdll
@@ -103,8 +76,8 @@ def wedge_colors(params, pixels, patch_cfg: PatchConfig):
     rc = lib.wedge_colors_launch(params.data_ptr(), pixels.data_ptr(),
                                  colors.data_ptr(), P, R, patch_cfg.w,
                                  patch_cfg.lambda_ridge,
-                                 _stream(params))
-    _raise_on(rc, "wedge_colors")
+                                 stream(params))
+    raise_on(rc, "wedge_colors")
     _LAUNCHES["wedge_colors"] += 1
     return colors
 
@@ -147,14 +120,14 @@ def wedge_render(xy_angles, etas, img_patches, patch_cfg: PatchConfig,
     """The full render, same arguments and result as ``wedge_render_plain``.
     CUDA tensors: the wedge_render kernel, which writes every output straight
     into this layout; CPU tensors: ``wedge_render_plain``."""
-    if _device_type(xy_angles, etas, img_patches) == "cpu":
+    if device_type(xy_angles, etas, img_patches) == "cpu":
         return wedge_render_plain(xy_angles, etas, img_patches, patch_cfg, dfd,
                                   rho_prime, hard_mask)
     R = patch_cfg.R
     B, Hp, Wp = xy_angles.shape[:3]
-    _check("xy_angles", xy_angles, (B, Hp, Wp, 8))
-    _check("etas", etas, (B, Hp, Wp, 4))
-    _check("img_patches", img_patches, (B, 2, Hp, Wp, R, R, 3))
+    check("xy_angles", xy_angles, (B, Hp, Wp, 8))
+    check("etas", etas, (B, Hp, Wp, 4))
+    check("img_patches", img_patches, (B, 2, Hp, Wp, R, R, 3))
     from ._build import load_library
 
     lib = load_library().cdll
@@ -178,7 +151,7 @@ def wedge_render(xy_angles, etas, img_patches, patch_cfg: PatchConfig,
         B, Hp * Wp, R, patch_cfg.w, patch_cfg.lambda_ridge, int(hard_mask),
         rho_prime, delta**2, dfd.numerator, dfd.denominator_constant,
         dfd.denominator_factor, dfd.denominator_factor_root, dfd.intercept,
-        dfd.s, _stream(xy_angles))
-    _raise_on(rc, "wedge_render")
+        dfd.s, stream(xy_angles))
+    raise_on(rc, "wedge_render")
     _LAUNCHES["wedge_render"] += 1
     return out

@@ -1,0 +1,100 @@
+"""The optimizer of the trainers and the initialisation they start from.
+
+Counterparts of the JAX package's ``train/local.py`` (:51-82), which builds
+``optax.chain(clip_by_global_norm(1.0), inject_hyperparams(adamw)(lr))``:
+
+- ``make_optimizer``: ``torch.optim.AdamW`` with optax's defaults, betas
+  (0.9, 0.999), eps 1e-8 and weight decay 1e-4 (torch's own default decay
+  is 0.01), applied to every parameter as optax applies it (decoupled,
+  scaled by the learning rate);
+- ``clip_by_global_norm_``: optax's clip, g * max/norm when the global norm
+  reaches max (``torch.nn.utils.clip_grad_norm_`` divides by norm + 1e-6);
+- ``set_lr`` / ``current_lr``: the injected learning rate, through the
+  optimizer's ``param_groups``;
+- ``xavier_reinit``: Xavier normal (truncated at two standard deviations,
+  as ``jax.nn.initializers.xavier_normal``) with the fans of the Flax
+  parameter shapes, zero biases, unit LayerNorm scales.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from ..models.global_stage import SelfAttention
+
+# jax's truncated_normal init divides the standard deviation by the std of
+# a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def make_optimizer(params, lr: float) -> torch.optim.AdamW:
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params, max_norm: float = 1.0) -> torch.Tensor:
+    """Scale every gradient by max_norm / norm when the global L2 norm of
+    all of them is at least max_norm (optax.clip_by_global_norm), in place
+    and without a host sync; returns the norm before clipping."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+    return norm
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def current_lr(optimizer: torch.optim.Optimizer) -> float:
+    return float(optimizer.param_groups[0]["lr"])
+
+
+def _xavier_(t: torch.Tensor, fan_in: int, fan_out: int, g: torch.Generator):
+    """Drawn on the CPU from ``g`` and copied, so a model gets the same
+    weights on every device."""
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
+    draw = torch.empty(t.shape, dtype=t.dtype)
+    t.copy_(nn.init.trunc_normal_(draw, std=std, a=-2.0 * std, b=2.0 * std, generator=g))
+
+
+@torch.no_grad()
+def xavier_reinit(model: nn.Module, g: torch.Generator) -> None:
+    """Re-initialise ``model`` in place as the JAX package initialises the
+    Flax model it mirrors (Flax default init, then Xavier normal on every
+    parameter of rank > 1), with draws from the CPU generator ``g``.
+
+    Fans follow the Flax shapes: a Dense kernel (in, out) gives (in, out);
+    each of the q/k/v DenseGeneral kernels (d, heads, hd) gives
+    (heads * d, hd * d); the out kernel (heads, hd, d) gives
+    (hd * heads, d * heads).
+    """
+    out_projs = set()
+    for mod in model.modules():
+        if isinstance(mod, SelfAttention):
+            w = mod.in_proj_weight                              # (3d, d)
+            d, heads = w.shape[1], mod.nhead
+            hd = d // heads
+            for part in w.split(d, dim=0):
+                _xavier_(part, heads * d, hd * d, g)
+            mod.in_proj_bias.zero_()
+            _xavier_(mod.out_proj.weight, hd * heads, d * heads, g)
+            mod.out_proj.bias.zero_()
+            out_projs.add(mod.out_proj)
+        elif isinstance(mod, nn.Linear):
+            if mod not in out_projs:
+                _xavier_(mod.weight, mod.in_features, mod.out_features, g)
+                mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif any(True for _ in mod.parameters(recurse=False)):
+            raise NotImplementedError(f"no Flax counterpart for {type(mod).__name__}")

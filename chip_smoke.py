@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 From the repository root, on a machine with one CUDA card and the CUDA
-toolkit (``nvcc``). It builds the wedge kernels from ``csrc/``, holds each
-kernel against its plain PyTorch version at the serving shapes and on
-degenerate inputs, serves a few 147x147 pairs through the port's estimators
-with seeded random full-width weights, checks the outputs (shapes, finite
-values, agreement with the port on the CPU at a small size), times the
-kernels and the pipeline, and prints as its last line
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero before that
-line. Without a CUDA device it exits non-zero at once.
+toolkit (``nvcc``). It builds the five kernels from ``csrc/`` (the two wedge
+kernels and flash attention's forward, dK/dV and dQ), holds each kernel
+against its plain PyTorch version at the shapes of the path that runs it
+and on degenerate or ragged inputs, and drives both slices of the port with
+seeded random full-width weights: it serves a few 147x147 pairs through the
+estimators, and trains the global stage at full width (147x147, 4,096
+tokens, 8 layers, batch 8) for three epochs on a seeded synthetic dataset
+in a temporary directory, then resumes it. It checks the outputs (shapes,
+finite values, the launch counts of each path, flash against matmul
+attention, the card against the CPU at a small size), times the kernels,
+the serving paths and the training step, and prints as its last line
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
+that line. Without a CUDA device it exits non-zero at once.
 
 TF32 is off for matmuls and convolutions, so the card computes in float32
 as the CPU reference does.
@@ -19,11 +24,16 @@ as the CPU reference does.
 
 from __future__ import annotations
 
+import argparse
 import copy
+import io
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import redirect_stdout
 from pathlib import Path
 
 import numpy as np
@@ -31,9 +41,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from blurry_edges_tpu_torch.config import CamConfig, GridConfig, PatchConfig  # noqa: E402
+from blurry_edges_tpu_torch.config import (  # noqa: E402
+    CamConfig, GridConfig, PatchConfig, get_args)
 from blurry_edges_tpu_torch.eval.pipeline import (  # noqa: E402
     fold_outputs, make_batched_depth_estimator, make_depth_estimator)
+from blurry_edges_tpu_torch.models.global_stage import GlobalStage  # noqa: E402
+from blurry_edges_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from blurry_edges_tpu_torch.ops import wedge_cuda  # noqa: E402
 from blurry_edges_tpu_torch.ops._build import load_library  # noqa: E402
 from blurry_edges_tpu_torch.ops.dfd import DfDSolver  # noqa: E402
@@ -41,6 +54,9 @@ from blurry_edges_tpu_torch.ops.params import (  # noqa: E402
     denormalize_global_eval, normalize_token_features, wrap_local_params)
 from blurry_edges_tpu_torch.ops.patchify import unfold  # noqa: E402
 from blurry_edges_tpu_torch.ops.wedge import params2etas  # noqa: E402
+from blurry_edges_tpu_torch.train import global_ as tg  # noqa: E402
+from blurry_edges_tpu_torch.train.checkpoint import checkpoint_exists  # noqa: E402
+from blurry_edges_tpu_torch.train.optim import make_optimizer, xavier_reinit  # noqa: E402
 from blurry_edges_tpu_torch.utils.weights import random_modules  # noqa: E402
 
 SEED = 0
@@ -55,6 +71,20 @@ F32_OPS_PER_S = 67e12
 # csrc/wedge_colors.cu and csrc/wedge_render.cu, which break them down
 COLORS_OPS_PER_PIXEL = 150
 RENDER_OPS_PER_PIXEL = 420
+# float32 operations a (query, key) pair per head dim D, from the notes at
+# the head of csrc/flash_attn_fwd.cu and csrc/flash_attn_bwd.cu
+FLASH_OPS_PER_PAIR_D = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
+FLASH_SHAPE = (2, 8, 4096, 16)   # a training chunk: 2 samples, 8 heads, 4,096 tokens
+FLASH_SCALE = 0.25               # 1 / sqrt(16)
+N_TRAIN, N_VAL, BATCH, LR = 16, 8, 8, 1e-4
+# the trainer's step structure (8 layers, chunks of 2 samples): per step
+# 3 forward launches a layer and chunk (the forward, the chunk's recompute
+# under activation checkpointing, the layer's recompute) and one of each
+# backward kernel; per val batch one forward a layer and chunk
+N_LAYERS, CHUNKS = 8, BATCH // 2
+STEP_LAUNCHES = {"flash_fwd": 3 * CHUNKS * N_LAYERS, "flash_bwd_dkv": CHUNKS * N_LAYERS,
+                 "flash_bwd_dq": CHUNKS * N_LAYERS}
+VAL_BATCH_LAUNCHES = {"flash_fwd": CHUNKS * N_LAYERS, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 
 class CheckFailed(Exception):
@@ -176,6 +206,238 @@ def make_pairs(rng, n, H):
     return pairs
 
 
+# --------------------------------------------------------------- flash
+
+
+def flash_inputs(shape, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dev) for _ in range(4)]
+
+
+def compare_flash(shape, seed, dev):
+    """The three flash kernels against their plain versions: max |diff|
+    under 1e-5 * scale for o and lse, 1e-4 * scale for dq, dk, dv (scale:
+    the plain result's largest |value|, at least 1). Both sides are float32
+    and sum in another order (the kernels blockwise with an online softmax,
+    the plain version by matmul). Returns the max |diff| of each kernel."""
+    q, k, v, dout = flash_inputs(shape, seed, dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, FLASH_SCALE)
+    o_p, lse_p = fa.flash_attention_plain(q, k, v, FLASH_SCALE)
+    di = (o * dout).sum(-1)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, di, FLASH_SCALE)
+    dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, di, FLASH_SCALE)
+    dq_p, dk_p, dv_p = fa.flash_attention_bwd_plain(q, k, v, o_p, lse_p, dout, FLASH_SCALE)
+    torch.cuda.synchronize()
+    errs = {}
+    for kernel, pairs, tol in (("flash_fwd", (("o", o, o_p), ("lse", lse, lse_p)), 1e-5),
+                               ("flash_bwd_dkv", (("dk", dk, dk_p), ("dv", dv, dv_p)), 1e-4),
+                               ("flash_bwd_dq", (("dq", dq, dq_p),), 1e-4)):
+        errs[kernel] = 0.0
+        for name, got, want in pairs:
+            check(torch.isfinite(got).all().item(), f"{kernel} {name}: non-finite output")
+            err = (got - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            check(err < tol * scale, f"{kernel} {name} {shape}: max|diff| {err} >= {tol} * {scale}")
+            errs[kernel] = max(errs[kernel], err)
+    return errs
+
+
+def flash_bounds(shape):
+    """(bound ms, bound_by) of each flash kernel at ``shape``: bytes of each
+    input read once and each output written once over the HBM rate, float32
+    operations over the float32 peak."""
+    B, H, L, D = shape
+    row, vec = B * H * L * D * 4, B * H * L * 4
+    bytes_ = {"flash_fwd": 4 * row + vec,              # q, k, v -> o, lse
+              "flash_bwd_dkv": 6 * row + 2 * vec,      # q, k, v, dO, lse, di -> dk, dv
+              "flash_bwd_dq": 5 * row + 2 * vec}       # q, k, v, dO, lse, di -> dq
+    out = {}
+    for name, per in FLASH_OPS_PER_PAIR_D.items():
+        t_bytes = bytes_[name] / HBM_BYTES_PER_S * 1e3
+        t_ops = per * B * H * L * L * D / F32_OPS_PER_S * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def time_flash(dev):
+    """Device ms of each flash kernel, of its plain version and of
+    scaled_dot_product_attention (the library call: forward for flash_fwd,
+    its backward, which gives dq, dk and dv at once, for both backward
+    kernels) at FLASH_SHAPE."""
+    q, k, v, dout = flash_inputs(FLASH_SHAPE, SEED + 7, dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, FLASH_SCALE)
+    di = (o * dout).sum(-1)
+    ms = {"flash_fwd": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, FLASH_SCALE), 20),
+          "flash_bwd_dkv": cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+              q, k, v, dout, lse, di, FLASH_SCALE), 20),
+          "flash_bwd_dq": cuda_ms(lambda: fa.flash_attention_bwd_dq(
+              q, k, v, dout, lse, di, FLASH_SCALE), 20)}
+    plain_fwd = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, FLASH_SCALE), 5)
+    plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, dout, FLASH_SCALE), 5)
+    plain = {"flash_fwd": plain_fwd, "flash_bwd_dkv": plain_bwd, "flash_bwd_dq": plain_bwd}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lambda: sdpa(q, k, v, scale=FLASH_SCALE), 20)
+    lib_both = cuda_ms(lambda: torch.autograd.grad(sdpa(*leaves, scale=FLASH_SCALE),
+                                                   leaves, dout), 20)
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dkv": lib_both - lib_fwd,
+               "flash_bwd_dq": lib_both - lib_fwd}
+    return ms, plain, library
+
+
+# --------------------------------------------------------------- training
+
+
+def write_dataset(path: Path, n_train: int, n_val: int, grid: GridConfig, seed: int):
+    """A seeded dataset in load_global_compact's layout: clean images are
+    integer photon counts times alpha / 255 (so the uint8 round trip is
+    exact), noisy ones Poisson-like integers, boundary depths on a ring of
+    rows, tokens N(0, 0.3)."""
+    rng = np.random.default_rng(seed)
+    H, L = grid.H, grid.num_tokens
+    for part, n in (("train", n_train), ("val", n_val)):
+        alpha = rng.uniform(180, 200, (n,)).astype(np.float32)
+        a = alpha[:, None, None, None, None]
+        counts = rng.integers(0, 256, (n, 2, H, H, 3)).astype(np.float32)
+        bd = np.zeros((n, H, H), np.float32)
+        bd[:, ::6, :] = rng.uniform(0.75, 1.18, (n, (H + 5) // 6, H))
+        arrays = {"alphas": alpha,
+                  "params_src": rng.normal(scale=0.3, size=(n, 2, L, 19)).astype(np.float32),
+                  "images_gt": (counts / 255.0 * a).astype(np.float32),
+                  "boundary_distances": rng.integers(0, 40, (n, H, H)).astype(np.float32),
+                  "boundary_depths": bd,
+                  "images_ny": np.clip(np.round(counts / 255.0 * a + rng.normal(
+                      0, 2, counts.shape)), 0, 255).astype(np.float32)}
+        for name, arr in arrays.items():
+            np.save(path / f"{name}_{part}.npy", arr)
+
+
+def trainer_args(root: Path, **over) -> argparse.Namespace:
+    args = get_args("global_train", argv=[])
+    args.data_path, args.log_path, args.model_path = (
+        str(root / "data"), str(root / "logs"), str(root / "weights"))
+    args.batch_size, args.epoch_num, args.dynamic_epoch = BATCH, 3, [2, 2, 4]
+    args.attn_impl = "flash"
+    for k, v in over.items():
+        setattr(args, k, v)
+    return args
+
+
+def run_trainer(root: Path):
+    """The global trainer's main path: 3 epochs of 2 steps (the plateau gate
+    opens at the last), then a second call with one epoch more that resumes
+    from the step snapshot. Returns the launches of each call, the losses,
+    and the seconds of each call."""
+    out = {}
+    for name, epochs in (("train", 3), ("resume", 4)):
+        args = trainer_args(root, epoch_num=epochs)
+        fa.reset_launch_counts()
+        wedge_cuda.reset_launch_counts()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(log):
+            tg.run_global_training(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out[name] = dict(flash=fa.launch_counts(), wedge=wedge_cuda.launch_counts(),
+                         seconds=seconds, log=log.getvalue())
+    steps = [ln.split() for ln in (root / "logs" / "global_steps.log").read_text().splitlines()
+             if ln.strip()]
+    losses = [float(s[2]) for s in steps]
+    curve = np.load(root / "logs" / "loss_curve_exp_global_stage.npy")
+    return out, losses, curve
+
+
+def fresh_model(attn_impl: str, n_layers: int, dev, seed: int = 1898):
+    """A GlobalStage with dropout 0 from the trainer's seeded init, with the
+    generator's kernel scaled by 1/4 so the etas start in the loss's
+    well-conditioned range (from the Xavier init many start at their floor
+    of 1e-4, where erf slopes ~1/eta make the gradient ill-conditioned)."""
+    model = GlobalStage(num_encoder_layers=n_layers, dropout=0.0, attn_impl=attn_impl)
+    xavier_reinit(model, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        model.generator.weight.mul_(0.25)
+    return model.to(dev)
+
+
+def one_step(model, batch, grid, patch_cfg, dfd, grad_accum):
+    """Loss, clipped gradients and the update over lr of one train step."""
+    before = [p.detach().clone() for p in model.parameters()]
+    opt = make_optimizer(model.parameters(), LR)
+    step, _ = tg.make_step_fns(model, opt, patch_cfg, grid, dfd, grad_accum)
+    loss = float(step(batch, tg.gammas_to_array(GAMMAS, batch["input_param"].device), 0))
+    grads = torch.cat([p.grad.detach().flatten().cpu() for p in model.parameters()])
+    upd = torch.cat([((p.detach() - b) / LR).flatten().cpu()
+                     for p, b in zip(model.parameters(), before)])
+    return loss, grads.double(), upd.double()
+
+
+def compare_steps(a, b, what):
+    """Two one-step results of the same function from fresh_model's init:
+    the loss within rtol 1e-5, the clipped gradients within a relative L2
+    error of 1e-3 (float32 on both sides, summed in another order; from
+    that init a float32-level change of the global stage's output moves
+    the gradient by ~4e-5, tests/test_torch_train_step.py), and Adam's
+    first-step updates (about the gradient's sign) within 2e-3 of lr
+    wherever the gradient is at least 1e-2 of the gradients' RMS, and
+    everywhere within 2 lr."""
+    (la, ga, ua), (lb, gb, ub) = a, b
+    rel = abs(la - lb) / abs(lb)
+    check(rel < 1e-5, f"{what}: loss {la} vs {lb}")
+    g_rel = ((ga - gb).norm() / gb.norm()).item()
+    check(g_rel < 1e-3, f"{what}: gradient relative L2 {g_rel}")
+    d = (ua - ub).abs()
+    clear = gb.abs() >= 1e-2 * gb.square().mean().sqrt()
+    check(d.max().item() <= 2.0, f"{what}: update differs by {d.max().item()} lr")
+    worst = d[clear].max().item()
+    check(worst < 2e-3, f"{what}: update differs by {worst} lr on a clear gradient")
+    return dict(loss_rel=rel, grad_rel_l2=g_rel, update_max_diff=worst,
+                clear_share=clear.double().mean().item())
+
+
+GAMMAS = {"color": 0.1, "color_cons": 0.05, "bndry_cons": 0.02, "smthns": 0.002,
+          "smthns_cons": 0.002, "bndry_loc": 0.0001, "depth": 0.5}
+
+
+def profile_step(batch, gammas, grid, patch_cfg, dfd, dev) -> str:
+    """Device time of one full-width flash training step by kernel, from
+    torch.profiler: the share of the flash kernels, of matrix products, of
+    everything else, and the device's idle share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model = GlobalStage(attn_impl="flash")
+    xavier_reinit(model, torch.Generator().manual_seed(1898))
+    model.to(dev)
+    step, _ = tg.make_step_fns(model, make_optimizer(model.parameters(), LR), patch_cfg,
+                               grid, dfd, CHUNKS)
+    step(batch, gammas, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, gammas, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():    # the kernels themselves, not the ops that launched them
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    total = sum(by_name.values())
+    if total == 0:
+        return "profile train step: device time not measured (the profiler saw no kernel)"
+    flash = sum(v for k, v in by_name.items() if "flash_" in k)
+    gemm = sum(v for k, v in by_name.items()
+               if any(w in k.lower() for w in ("gemm", "sm90_", "cutlass", "ampere_")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return (f"profile train step (flash, full width, batch 8): wall {wall_ms:.1f} ms, device "
+            f"{total:.1f} ms (idle {1 - total / wall_ms:.1%}); flash kernels {flash:.1f} ms "
+            f"({flash / total:.1%}), matrix products {gemm:.1f} ms ({gemm / total:.1%}), other "
+            f"{total - flash - gemm:.1f} ms; {len(by_name)} kernels; top: "
+            + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -189,10 +451,11 @@ def main() -> int:
     print(f"card: {card}")
     t_start = time.perf_counter()
 
-    # 1. build
+    # 1. build: every source by its own nvcc, all started together
     lib = load_library()
     regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
-    print(f"build: {lib.build_seconds:.2f} s -> {lib.path.name}; ptxas: {regs}")
+    print(f"build: {lib.build_seconds:.2f} s for the five kernels of "
+          f"{len(lib.log.split('== ')) - 1} sources -> {lib.path.name}; ptxas: {regs}")
 
     # 2. each kernel against its plain version at the main path's shapes
     patch_cfg, cam, grid = PatchConfig(), CamConfig(), GridConfig()
@@ -245,6 +508,15 @@ def main() -> int:
                       f"max|diff| {e:.3g} ok")
         del four
         torch.cuda.synchronize()
+
+        # the flash kernels at a training chunk's shape and at a ragged L
+        # (the 41x41 grid's 121 tokens)
+        for shape in (FLASH_SHAPE, (1, 8, 121, 16)):
+            case = compare_flash(shape, SEED + shape[2], dev)
+            for name, e in case.items():
+                errs[name] = max(errs.get(name, 0.0), e)
+            print(f"kernels flash_fwd, flash_bwd_dkv, flash_bwd_dq vs plain [{shape}]: "
+                  f"max|diff| " + ", ".join(f"{k} {e:.3g}" for k, e in case.items()) + " ok")
 
     # 3. serving: each path's launches counted from 0 just before it
     single = {d: make_depth_estimator(mods, patch_cfg, grid, cam, densify=d,
@@ -332,7 +604,84 @@ def main() -> int:
             check(q99 < 5e-3, f"card vs CPU {d} {k}: p99 {q99}")
     print("reference: card vs CPU port at 41x41 (densify none, w) ok")
 
-    # 5. timings
+    # 5. training, the main path of the second slice: 3 epochs at full width
+    # (147x147, 4,096 tokens, 8 layers, batch 8 in 4 chunks of 2), flash
+    # attention, then a resumed call; the launches counted from 0 just
+    # before each call
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        (root / "data").mkdir()
+        write_dataset(root / "data", N_TRAIN, N_VAL, grid, SEED + 11)
+        calls, losses, curve = run_trainer(root)
+        weights = root / "weights"
+        check(checkpoint_exists(str(weights / "best_run_exp_global_stage")), "no best checkpoint")
+        check(checkpoint_exists(str(weights / "last_exp_global_stage")), "no step snapshot")
+        check((weights / "done_global").exists(), "no completion marker")
+        train_data = tg.load_global_compact(str(root / "data"), train=True)
+        val_data = tg.load_global_compact(str(root / "data"), train=False, include_ny=True)
+    steps_per_epoch, val_batches = N_TRAIN // BATCH, N_VAL // BATCH
+    check(len(losses) == 4 * steps_per_epoch and np.isfinite(losses).all(),
+          f"train losses {losses}")
+    check(curve.shape == (4,) and np.isfinite(curve).all(), f"val curve {curve}")
+    check("RESUMED at epoch 3 step 0" in calls["resume"]["log"], "the second call did not resume")
+    for name, epochs in (("train", 3), ("resume", 1)):
+        want = {k: epochs * (steps_per_epoch * STEP_LAUNCHES[k]
+                             + val_batches * VAL_BATCH_LAUNCHES[k]) for k in STEP_LAUNCHES}
+        check(calls[name]["flash"] == want,
+              f"trainer ({name}) flash launches {calls[name]['flash']}, want {want}")
+        check(not any(calls[name]["wedge"].values()), "the trainer launched a wedge kernel")
+    launches_train = {k: calls["train"]["flash"][k] + calls["resume"]["flash"][k]
+                      for k in STEP_LAUNCHES}
+    print(f"train: 3 epochs x {steps_per_epoch} steps of batch {BATCH} (grad_accum {CHUNKS}) "
+          f"at 147x147, flash attention, in {calls['train']['seconds']:.1f} s; resumed for one "
+          f"epoch more in {calls['resume']['seconds']:.1f} s; losses {np.round(losses, 5).tolist()}, "
+          f"val {np.round(curve, 5).tolist()}; checkpoint, snapshot and resume ok")
+    print(f"train: flash launches {launches_train} = per step {STEP_LAUNCHES} and per val "
+          f"batch {VAL_BATCH_LAUNCHES} (3 x chunks x layers forward: the forward, the chunk's "
+          f"recompute and the layer's recompute) ok")
+
+    # 6. flash against matmul attention: one full-width step of each from the
+    # same init (dropout 0), and the launches of one step and one val batch
+    batch = tg.to_device_batch({k: v[:BATCH] for k, v in train_data.items()}, dev,
+                               bf16_tokens=True)
+    val_batch = tg.to_device_batch({k: v[:BATCH] for k, v in val_data.items()}, dev)
+    results = {}
+    for impl in ("xla", "flash"):
+        fa.reset_launch_counts()
+        results[impl] = one_step(fresh_model(impl, N_LAYERS, dev), batch, grid, patch_cfg,
+                                 dfd, CHUNKS)
+        torch.cuda.synchronize()
+        counts = fa.launch_counts()
+        want = STEP_LAUNCHES if impl == "flash" else dict.fromkeys(STEP_LAUNCHES, 0)
+        check(counts == want, f"{impl} step: flash launches {counts}, want {want}")
+    model = fresh_model("flash", N_LAYERS, dev)
+    _, eval_step = tg.make_step_fns(model, make_optimizer(model.parameters(), LR), patch_cfg,
+                                    grid, dfd, CHUNKS)
+    fa.reset_launch_counts()
+    val_loss = float(eval_step(val_batch, tg.gammas_to_array(GAMMAS, dev)))
+    check(fa.launch_counts() == VAL_BATCH_LAUNCHES and math.isfinite(val_loss),
+          f"val batch: launches {fa.launch_counts()}, loss {val_loss}")
+    agree = compare_steps(results["flash"], results["xla"], "flash vs xla step")
+    print(f"train: one full-width step, flash vs xla attention from the same init: "
+          f"{ {k: float(f'{v:.3g}') for k, v in agree.items()} } ok; launches of one step "
+          f"{STEP_LAUNCHES}, of one val batch {VAL_BATCH_LAUNCHES} ok")
+
+    # 7. the port's step on the card against the port's step on the CPU at
+    # 51x51 (256 tokens), two layers, 2 samples in 2 chunks
+    small = GridConfig(H=51, W=51)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        write_dataset(Path(tmp), 2, 0, small, SEED + 12)
+        small_np = tg.load_global_compact(tmp, train=True)
+    steps = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        steps[where] = one_step(fresh_model("flash", 2, d), tg.to_device_batch(small_np, d),
+                                small, patch_cfg, dfd, 2)
+    agree_cpu = compare_steps(steps["cuda"], steps["cpu"], "card vs CPU step")
+    print(f"train: one step at 51x51, 2 layers, card (kernels) vs CPU (plain): "
+          f"{ {k: float(f'{v:.3g}') for k, v in agree_cpu.items()} } ok")
+
+    # 8. timings
     with torch.inference_mode():
         k_ms = {
             "wedge_colors": cuda_ms(lambda: wedge_cuda.wedge_colors(params, flat, patch_cfg), 50),
@@ -398,6 +747,36 @@ def main() -> int:
           f"batched x{N_PAIRS} {batched_rate:.3f} pairs/s (peak {batched_peak:.2f} GiB) "
           f"[{card}]")
 
+    # the flash kernels at a training chunk's shape, and the training step
+    f_ms, f_plain, f_lib = time_flash(dev)
+    f_bound = flash_bounds(FLASH_SHAPE)
+    for name in FLASH_OPS_PER_PAIR_D:
+        print(f"time {name} {FLASH_SHAPE}: kernel {f_ms[name]:.4f} ms, bound "
+              f"{f_bound[name][0]:.4f} ms ({f_bound[name][1]}), plain {f_plain[name]:.4f} ms, "
+              f"scaled_dot_product_attention {f_lib[name]:.4f} ms [{card}]")
+    step_ms, step_peak = {}, {}
+    gammas = tg.gammas_to_array(GAMMAS, dev)
+    for impl in ("flash", "xla"):
+        model = GlobalStage(attn_impl=impl)      # the trainer's model: dropout 0.1
+        xavier_reinit(model, torch.Generator().manual_seed(1898))
+        model.to(dev)
+        step, _ = tg.make_step_fns(model, make_optimizer(model.parameters(), LR), patch_cfg,
+                                   grid, dfd, CHUNKS)
+        step(batch, gammas, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(3):
+            step(batch, gammas, i + 1)
+        torch.cuda.synchronize()
+        step_ms[impl] = (time.perf_counter() - t0) / 3 * 1e3
+        step_peak[impl] = torch.cuda.max_memory_allocated() / 2**30
+        del model, step
+    print("time train step at full width, batch 8: " + ", ".join(
+        f"{impl} {step_ms[impl]:.1f} ms (peak {step_peak[impl]:.2f} GiB)" for impl in step_ms)
+        + f" [{card}]")
+    print(profile_step(batch, gammas, grid, patch_cfg, dfd, dev) + f" [{card}]")
+
     kernels = []
     for name, src, tpu in (
             ("wedge_colors", "blurry_edges_tpu_torch/csrc/wedge_colors.cu",
@@ -415,6 +794,19 @@ def main() -> int:
             plain_ms=p_ms[name], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None))
+    flash_src = {"flash_fwd": ("blurry_edges_tpu_torch/csrc/flash_attn_fwd.cu", "flash_attention.py:589"),
+                 "flash_bwd_dkv": ("blurry_edges_tpu_torch/csrc/flash_attn_bwd.cu", "flash_attention.py:941"),
+                 "flash_bwd_dq": ("blurry_edges_tpu_torch/csrc/flash_attn_bwd.cu", "flash_attention.py:1287")}
+    for name, (src, lib_line) in flash_src.items():
+        kernels.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=f"jax/experimental/pallas/ops/tpu/{lib_line}",
+            reached_by="blurry_edges_tpu/models/global_stage.py:21",
+            launches=launches_train[name],
+            launches_by_path={"train": calls["train"]["flash"][name],
+                              "resume": calls["resume"]["flash"][name]},
+            max_abs_err=errs[name], ms=f_ms[name], plain_ms=f_plain[name],
+            bound_ms=f_bound[name][0], bound_by=f_bound[name][1], library_ms=f_lib[name]))
     print(f"total: {time.perf_counter() - t_start:.1f} s after start-up, "
           f"build {lib.build_seconds:.2f} s")
     print(card)
