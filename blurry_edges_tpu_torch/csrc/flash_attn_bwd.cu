@@ -1,34 +1,29 @@
-// Flash attention backward: dK, dV (one kernel) and dQ (another) from q, k,
-// v, the output gradient dO, the forward's lse and di = rowsum(o * dO),
-// recomputing the probabilities tile by tile instead of reading them.
+// Flash attention backward, dQ, from q, k, v, the output gradient dO, the
+// forward's lse and di = rowsum(o * dO), recomputing the probabilities tile
+// by tile instead of reading them. dK and dV are the other kernel, in
+// flash_attn_bwd_dkv.cu.
 //
-// Replaces the two backward TPU kernels of the library flash attention that
+// Replaces the TPU kernel of the library flash attention that
 // blurry_edges_tpu/models/global_stage.py::flash_attention_fn calls
 // (jax/experimental/pallas/ops/tpu/flash_attention.py):
-// _flash_attention_bwd_dkv (its pallas_call, body _flash_attention_dkv_kernel)
-// and _flash_attention_bwd_dq (body _flash_attention_dq_kernel). As there,
-// di is computed outside the kernels.
+// _flash_attention_bwd_dq (its pallas_call, body _flash_attention_dq_kernel).
+// As there, di is computed outside the kernel.
 //
 // With s = scale * q.k, p = exp(s - lse), dP = dO.v, dS = p * (dP - di):
-//   dV = sum over queries of p * dO,   dK = scale * sum over queries of dS * q,
 //   dQ = scale * sum over keys of dS * k.
 //
-// Bound on an H100: float32 operations. A (query, key) pair costs 8*D in the
-// dK/dV kernel (q.k, p*dO, dO.v, dS*q) and 6*D in the dQ kernel (q.k, dO.v,
-// dS*k), a multiply-add counting 2. At the global trainer's chunk shape
-// (B = 2, H = 8, L = 4,096, D = 16): dK/dV 34.4 GFLOP, 0.51 ms at
-// 67 TFLOP/s; dQ 25.8 GFLOP, 0.39 ms; each moves under 6 MB (~2 us at
-// 3.35 TB/s). Float32 FMA, not TF32 or bf16 tensor cores.
+// Bound on an H100: float32 operations. A (query, key) pair costs 6*D (q.k,
+// dO.v, dS*k), a multiply-add counting 2. At the global trainer's chunk
+// shape (B = 2, H = 8, L = 4,096, D = 16): 25.8 GFLOP, 0.39 ms at
+// 67 TFLOP/s; it moves under 6 MB (~2 us at 3.35 TB/s). Float32 FMA, not
+// TF32 or bf16 tensor cores.
 //
-// Design. dK/dV: one block for each (tile of kBlock key rows, batch x head);
-// a thread owns one key row, its k and v in registers and its dK and dV
-// accumulators; it walks tiles of kTile queries of q, dO, lse and di staged
-// in shared memory (all lanes read the same query: a broadcast). dQ: one
-// block for each (tile of kBlock query rows, batch x head); a thread owns one
-// query row with q, dO, lse, di and its dQ accumulator, and walks tiles of k
-// and v. Every sum is a thread's own, in a fixed order: no atomics, so the
-// gradients are deterministic. Rows past L are zero-filled in shared memory
-// and skipped by the loop bounds.
+// Design: one block for each (tile of kBlock query rows, batch x head); a
+// thread owns one query row with q, dO, lse, di and its dQ accumulator, and
+// walks tiles of k and v staged in shared memory (all lanes read the same
+// key: a broadcast). Every sum is a thread's own, in a fixed order: no
+// atomics, so the gradient is deterministic. Rows past L are zero-filled in
+// shared memory and skipped by the loop bounds.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,57 +95,6 @@ __device__ __forceinline__ void stage_pair(const float* a, const float* b,
 }
 
 __global__ void __launch_bounds__(kBlock)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ di,
-                     float* __restrict__ dk, float* __restrict__ dv, int L,
-                     float scale) {
-  __shared__ float4 qs[kTile * kVec];
-  __shared__ float4 dos[kTile * kVec];
-  __shared__ float lses[kTile];
-  __shared__ float dis[kTile];
-
-  const size_t head = (size_t)blockIdx.y * L;
-  const int row = blockIdx.x * kBlock + threadIdx.x;  // this thread's key
-  const bool valid = row < L;
-
-  float kr[kD], vr[kD], dkr[kD], dvr[kD];
-#pragma unroll
-  for (int i = 0; i < kD; ++i) { kr[i] = vr[i] = dkr[i] = dvr[i] = 0.f; }
-  if (valid) {
-    load_row(k + (head + row) * kD, kr);
-    load_row(v + (head + row) * kD, vr);
-  }
-
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int nq = min(kTile, L - t0);
-    __syncthreads();
-    stage_pair(q + head * kD, dout + head * kD, qs, dos, t0, nq);
-    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-      lses[i] = i < nq ? lse[head + t0 + i] : 0.f;
-      dis[i] = i < nq ? di[head + t0 + i] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int i = 0; i < nq; ++i) {
-      const float4* qi = qs + i * kVec;
-      const float4* doi = dos + i * kVec;
-      const float p = expf(dot16(kr, qi) * scale - lses[i]);
-      const float dp = dot16(vr, doi);
-      const float ds = p * (dp - dis[i]);
-      axpy16(p, doi, dvr);
-      axpy16(ds, qi, dkr);
-    }
-  }
-
-  if (valid) {
-    store_row(dk + (head + row) * kD, dkr, scale);
-    store_row(dv + (head + row) * kD, dvr, 1.f);
-  }
-}
-
-__global__ void __launch_bounds__(kBlock)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
@@ -193,22 +137,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
-// All arrays float32, contiguous: q, k, v, dout, dk, dv, dq (BH, L, 16);
-// lse, di (BH, L). BH = batch x heads. Each returns cudaGetLastError()
-// after its launch.
-extern "C" int flash_attn_bwd_dkv_launch(const float* q, const float* k,
-                                         const float* v, const float* dout,
-                                         const float* lse, const float* di,
-                                         float* dk, float* dv, int BH, int L,
-                                         float scale, cudaStream_t stream) {
-  if (BH > 0 && L > 0) {
-    const dim3 grid((L + kBlock - 1) / kBlock, BH);
-    flash_bwd_dkv_kernel<<<grid, kBlock, 0, stream>>>(q, k, v, dout, lse, di,
-                                                      dk, dv, L, scale);
-  }
-  return (int)cudaGetLastError();
-}
-
+// All arrays float32, contiguous: q, k, v, dout, dq (BH, L, 16); lse, di
+// (BH, L). BH = batch x heads. Returns cudaGetLastError() after the launch.
 extern "C" int flash_attn_bwd_dq_launch(const float* q, const float* k,
                                         const float* v, const float* dout,
                                         const float* lse, const float* di,

@@ -27,6 +27,34 @@ class Smish(nn.Module):
         return smish(x)
 
 
+class _FlaxBatchNorm:
+    """Flax ``nn.BatchNorm``'s training update: running statistics move by
+    momentum 0.99 (torch's ``momentum=0.01``) toward the batch mean and the
+    biased batch variance (torch's own update takes the unbiased one).
+    Normalisation, eval mode and state-dict keys are torch's."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, momentum=0.01)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            self.running_mean.lerp_(x.mean(dims), self.momentum)
+            self.running_var.lerp_(x.var(dims, unbiased=False), self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
 class ResidualBlock(nn.Module):
     """conv3x3+BN, Smish, conv3x3+BN, plus the skip (1x1 conv+BN where the
     width changes), Smish after the sum."""
@@ -34,13 +62,13 @@ class ResidualBlock(nn.Module):
     def __init__(self, in_features: int, features: int):
         super().__init__()
         self.conv1 = nn.Sequential(nn.Conv2d(in_features, features, 3, padding=1),
-                                   nn.BatchNorm2d(features), Smish())
+                                   BatchNorm2d(features), Smish())
         self.conv2 = nn.Sequential(nn.Conv2d(features, features, 3, padding=1),
-                                   nn.BatchNorm2d(features))
+                                   BatchNorm2d(features))
         self.downsample = None
         if in_features != features:
             self.downsample = nn.Sequential(nn.Conv2d(in_features, features, 1),
-                                            nn.BatchNorm2d(features))
+                                            BatchNorm2d(features))
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
@@ -59,12 +87,12 @@ class LocalStage(nn.Module):
                  output_dim: int = 10):
         super().__init__()
         self.conv1 = nn.Sequential(nn.Conv2d(3, 64, 7, padding=3),
-                                   nn.BatchNorm2d(64), Smish())
+                                   BatchNorm2d(64), Smish())
         ins = (64,) + tuple(widths[:-1])
         for k, (i, o) in enumerate(zip(ins, widths)):
             setattr(self, f"layer{k}", nn.Sequential(ResidualBlock(i, o)))
         self.fc = nn.Sequential(nn.Flatten(), nn.Linear(widths[-1] * 9, 1024),
-                                nn.BatchNorm1d(1024), Smish(),
+                                BatchNorm1d(1024), Smish(),
                                 nn.Linear(1024, output_dim))
 
     def forward(self, x):

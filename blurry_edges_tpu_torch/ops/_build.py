@@ -23,8 +23,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("wedge_colors.cu", "wedge_render.cu", "flash_attn_fwd.cu",
-           "flash_attn_bwd.cu")
-HEADERS = ("wedge_common.cuh",)
+           "flash_attn_bwd_dkv.cu", "flash_attn_bwd.cu")
+HEADERS = ("wedge_common.cuh", "flash_mma.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -46,7 +46,7 @@ class Library:
         self.cdll = cdll
         self.path = path
         self.build_seconds = build_seconds  # 0.0 when the library was cached
-        self.log = log                      # nvcc/ptxas output of the build
+        self.log = log                      # nvcc/ptxas output of the build that made it
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(cdll, name)
             fn.argtypes = argtypes
@@ -103,14 +103,26 @@ def _compile(target: Path) -> str:
     return "\n".join(log)
 
 
+def sass(path: Path) -> str:
+    """The SASS of a built library, by the ``cuobjdump`` beside ``nvcc``."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+
+
 def load_library() -> Library:
     """The kernels' library, built on the first call of the process (or
     found in ``_build/`` from an earlier build of the same sources)."""
     global _library
     if _library is None:
         target = BUILD_DIR / f"libkernels_{_digest()}.so"
+        log_file = target.with_suffix(".log")
         t0 = time.perf_counter()
-        log = "" if target.exists() else _compile(target)
-        seconds = time.perf_counter() - t0 if log else 0.0
+        if target.exists() and log_file.exists():
+            log, seconds = log_file.read_text(), 0.0
+        else:
+            log = _compile(target)
+            seconds = time.perf_counter() - t0
+            log_file.write_text(log)
         _library = Library(ctypes.CDLL(str(target)), target, seconds, log)
     return _library

@@ -5,7 +5,9 @@
 
 From the repository root, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``). It builds the five kernels from ``csrc/`` (the two wedge
-kernels and flash attention's forward, dK/dV and dQ), holds each kernel
+kernels and flash attention's forward, dK/dV and dQ), prints ptxas's
+registers, shared memory and spills of the two tensor-core flash kernels
+and fails if their SASS holds no tensor-core instruction, holds each kernel
 against its plain PyTorch version at the shapes of the path that runs it
 and on degenerate or ragged inputs, and drives both slices of the port with
 seeded random full-width weights: it serves a few 147x147 pairs through the
@@ -29,6 +31,7 @@ import copy
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -48,7 +51,7 @@ from blurry_edges_tpu_torch.eval.pipeline import (  # noqa: E402
 from blurry_edges_tpu_torch.models.global_stage import GlobalStage  # noqa: E402
 from blurry_edges_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from blurry_edges_tpu_torch.ops import wedge_cuda  # noqa: E402
-from blurry_edges_tpu_torch.ops._build import load_library  # noqa: E402
+from blurry_edges_tpu_torch.ops._build import load_library, sass  # noqa: E402
 from blurry_edges_tpu_torch.ops.dfd import DfDSolver  # noqa: E402
 from blurry_edges_tpu_torch.ops.params import (  # noqa: E402
     denormalize_global_eval, normalize_token_features, wrap_local_params)
@@ -66,14 +69,24 @@ RHO_PRIME = 10.39
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12      # dense TF32 on the tensor cores
+SFU_EXP_PER_CLOCK_SM = 16    # exponentials an SM issues a clock
+N_SMS = 132
+# the SM clock that TF32_OPS_PER_S assumes: 2,048 dense TF32 operations a
+# clock an SM (1.83 GHz)
+TF32_CLOCK_HZ = TF32_OPS_PER_S / (N_SMS * 2048)
 # float32 operations a pixel that each kernel's function needs (a
 # multiply-add counts 2): the counts in the notes at the head of
 # csrc/wedge_colors.cu and csrc/wedge_render.cu, which break them down
 COLORS_OPS_PER_PIXEL = 150
 RENDER_OPS_PER_PIXEL = 420
 # float32 operations a (query, key) pair per head dim D, from the notes at
-# the head of csrc/flash_attn_fwd.cu and csrc/flash_attn_bwd.cu
+# the head of csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd_dkv.cu and
+# csrc/flash_attn_bwd.cu
 FLASH_OPS_PER_PAIR_D = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
+# the kernels on the tensor cores in 3xTF32 (three TF32 products for each
+# float32 one), with their sources
+TENSOR_CORE_KERNELS = {"flash_fwd": "flash_attn_fwd.cu", "flash_bwd_dkv": "flash_attn_bwd_dkv.cu"}
 FLASH_SHAPE = (2, 8, 4096, 16)   # a training chunk: 2 samples, 8 heads, 4,096 tokens
 FLASH_SCALE = 0.25               # 1 / sqrt(16)
 N_TRAIN, N_VAL, BATCH, LR = 16, 8, 8, 1e-4
@@ -101,6 +114,30 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_line(log: str, source: str) -> str:
+    """Registers, shared memory a block and spills of the kernel in
+    ``source``, from the build's ptxas output."""
+    part = log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0]
+    regs = re.search(r"Used (\d+) registers", part)
+    smem = re.search(r"(\d+) bytes smem", part)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+    check(regs and spill, f"no ptxas report for {source}")
+    return (f"{regs.group(1)} registers, {smem.group(1) if smem else 0} bytes shared memory "
+            f"a block, spills {spill.group(1)} B stored / {spill.group(2)} B loaded")
+
+
+def tensor_core_counts(lib_path, kernels) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each kernel
+    whose mangled name holds ``<name>_kernel``."""
+    counts, current = dict.fromkeys(kernels, 0), None
+    for ln in sass(lib_path).splitlines():
+        if "Function :" in ln:
+            current = next((k for k in kernels if f"{k}_kernel" in ln), None)
+        elif current and re.search(r"\bH(G)?MMA\b", ln):
+            counts[current] += 1
+    return counts
 
 
 def matmul_flops(model, x) -> int:
@@ -243,19 +280,28 @@ def compare_flash(shape, seed, dev):
 
 
 def flash_bounds(shape):
-    """(bound ms, bound_by) of each flash kernel at ``shape``: bytes of each
-    input read once and each output written once over the HBM rate, float32
-    operations over the float32 peak."""
+    """Two bounds of each flash kernel at ``shape``, each (ms, bound_by):
+    "fp32", the larger of the bytes (each input read once, each output
+    written once) over the HBM rate and the float32 operations over the
+    float32 peak; "tensor_core", the largest of the bytes, three times the
+    operations (3xTF32) over the dense TF32 peak and the L^2 exponentials a
+    head over the SFUs, taken at the clock the TF32 peak assumes so that both
+    terms count one clock."""
     B, H, L, D = shape
     row, vec = B * H * L * D * 4, B * H * L * 4
     bytes_ = {"flash_fwd": 4 * row + vec,              # q, k, v -> o, lse
               "flash_bwd_dkv": 6 * row + 2 * vec,      # q, k, v, dO, lse, di -> dk, dv
               "flash_bwd_dq": 5 * row + 2 * vec}       # q, k, v, dO, lse, di -> dq
+    t_exp = B * H * L * L / (N_SMS * SFU_EXP_PER_CLOCK_SM * TF32_CLOCK_HZ) * 1e3
     out = {}
     for name, per in FLASH_OPS_PER_PAIR_D.items():
         t_bytes = bytes_[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = per * B * H * L * L * D / F32_OPS_PER_S * 1e3
-        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        ops = per * B * H * L * L * D
+        t_ops, t_tc = ops / F32_OPS_PER_S * 1e3, 3 * ops / TF32_OPS_PER_S * 1e3
+        out[name] = {
+            "fp32": (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"),
+            "tensor_core": (max(t_bytes, t_tc, t_exp),
+                            "bytes" if t_bytes >= max(t_tc, t_exp) else "operations")}
     return out
 
 
@@ -456,6 +502,12 @@ def main() -> int:
     regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
     print(f"build: {lib.build_seconds:.2f} s for the five kernels of "
           f"{len(lib.log.split('== ')) - 1} sources -> {lib.path.name}; ptxas: {regs}")
+    for name, source in TENSOR_CORE_KERNELS.items():
+        print(f"ptxas {name} ({source}): {ptxas_line(lib.log, source)}")
+    mma_counts = tensor_core_counts(lib.path, list(TENSOR_CORE_KERNELS))
+    print(f"sass: tensor-core instructions (HMMA/HGMMA) by kernel {mma_counts}")
+    for name, n in mma_counts.items():
+        check(n > 0, f"{name}: no tensor-core instruction in its SASS")
 
     # 2. each kernel against its plain version at the main path's shapes
     patch_cfg, cam, grid = PatchConfig(), CamConfig(), GridConfig()
@@ -751,8 +803,10 @@ def main() -> int:
     f_ms, f_plain, f_lib = time_flash(dev)
     f_bound = flash_bounds(FLASH_SHAPE)
     for name in FLASH_OPS_PER_PAIR_D:
-        print(f"time {name} {FLASH_SHAPE}: kernel {f_ms[name]:.4f} ms, bound "
-              f"{f_bound[name][0]:.4f} ms ({f_bound[name][1]}), plain {f_plain[name]:.4f} ms, "
+        fp32, tc = f_bound[name]["fp32"][0], f_bound[name]["tensor_core"][0]
+        print(f"time {name} {FLASH_SHAPE}: kernel {f_ms[name]:.4f} ms, bound fp32 {fp32:.4f} "
+              f"ms ({fp32 / f_ms[name]:.1%} of it reached), bound tensor-core {tc:.4f} ms "
+              f"({tc / f_ms[name]:.1%}), plain {f_plain[name]:.4f} ms, "
               f"scaled_dot_product_attention {f_lib[name]:.4f} ms [{card}]")
     step_ms, step_peak = {}, {}
     gammas = tg.gammas_to_array(GAMMAS, dev)
@@ -795,9 +849,11 @@ def main() -> int:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None))
     flash_src = {"flash_fwd": ("blurry_edges_tpu_torch/csrc/flash_attn_fwd.cu", "flash_attention.py:589"),
-                 "flash_bwd_dkv": ("blurry_edges_tpu_torch/csrc/flash_attn_bwd.cu", "flash_attention.py:941"),
+                 "flash_bwd_dkv": ("blurry_edges_tpu_torch/csrc/flash_attn_bwd_dkv.cu", "flash_attention.py:941"),
                  "flash_bwd_dq": ("blurry_edges_tpu_torch/csrc/flash_attn_bwd.cu", "flash_attention.py:1287")}
     for name, (src, lib_line) in flash_src.items():
+        # bound_ms: the least of the two bounds, the tensor cores' (3xTF32)
+        bound, bound_by = f_bound[name]["tensor_core"]
         kernels.append(dict(
             name=name, route="cuda", source=src,
             replaces=f"jax/experimental/pallas/ops/tpu/{lib_line}",
@@ -806,7 +862,8 @@ def main() -> int:
             launches_by_path={"train": calls["train"]["flash"][name],
                               "resume": calls["resume"]["flash"][name]},
             max_abs_err=errs[name], ms=f_ms[name], plain_ms=f_plain[name],
-            bound_ms=f_bound[name][0], bound_by=f_bound[name][1], library_ms=f_lib[name]))
+            bound_ms=bound, bound_by=bound_by, bound_fp32_ms=f_bound[name]["fp32"][0],
+            library_ms=f_lib[name]))
     print(f"total: {time.perf_counter() - t_start:.1f} s after start-up, "
           f"build {lib.build_seconds:.2f} s")
     print(card)

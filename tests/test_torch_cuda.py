@@ -134,7 +134,7 @@ def assert_flash_close(got, want, tol):
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 4096, 16), (1, 8, 121, 16), (3, 2, 1, 16),
-                                   (1, 1, 200, 16)])
+                                   (1, 1, 200, 16), (1, 2, 4097, 16), (2, 1, 64, 16)])
 def test_flash_kernels_match_plain(dev, shape):
     g = torch.Generator().manual_seed(shape[2])
     q, k, v, dout = (torch.randn(shape, generator=g).to(dev) for _ in range(4))
@@ -147,6 +147,21 @@ def test_flash_kernels_match_plain(dev, shape):
     assert_flash_close(grads, fa.flash_attention_bwd_plain(q, k, v, o_p, lse_p, dout,
                                                            FLASH_SCALE), 1e-4)
     assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+
+
+def test_tensor_core_flash_kernels_repeat_bit_for_bit(dev):
+    """The forward and dK/dV kernels (tensor cores, 3xTF32) give the same
+    bits on a second launch: every sum in a fixed order, no atomics."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v, dout = (torch.randn((1, 2, 4097, 16), generator=g).to(dev) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, FLASH_SCALE)
+    di = (o * dout).sum(-1)
+    first = (o, lse, *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, di, FLASH_SCALE))
+    again = (*fa.flash_attention_fwd(q, k, v, FLASH_SCALE),
+             *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, di, FLASH_SCALE))
+    torch.cuda.synchronize()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
 
 
 def test_flash_function_backward_matches_autograd(dev):
