@@ -6,7 +6,7 @@
 // blurry_edges_tpu/models/global_stage.py::flash_attention_fn calls:
 // jax/experimental/pallas/ops/tpu/flash_attention.py::_flash_attention_bwd_dkv
 // (its pallas_call, body _flash_attention_dkv_kernel). As there, di is
-// computed outside the kernel. dQ is the other kernel, in flash_attn_bwd.cu.
+// computed outside the kernel. dQ is the other kernel, in flash_attn_bwd_dq.cu.
 //
 // With s = scale * q.k, p = exp(s - lse), dP = dO.v, dS = p * (dP - di):
 //   dV = sum over queries of p * dO,   dK = scale * sum over queries of dS * q.

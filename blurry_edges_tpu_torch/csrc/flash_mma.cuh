@@ -1,6 +1,7 @@
 // Pieces shared by the tensor-core flash kernels (flash_attn_fwd.cu,
-// flash_attn_bwd_dkv.cu): 3xTF32 products on wgmma, the layouts of their
-// operands, and the cp.async copies that stage the tiles.
+// flash_attn_bwd_dkv.cu, flash_attn_bwd_dq.cu): 3xTF32 products on wgmma,
+// the layouts of their operands, and the cp.async copies that stage the
+// tiles (async_copy.cuh).
 //
 // 3xTF32. A float32 x splits into big = tf32(x) and small = tf32(x - big),
 // each rounded to nearest, ties away (as cvt.rna); a*b is then taken as
@@ -35,7 +36,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace flash_mma {
+
+using namespace async_copy;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -134,6 +139,20 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4]
       : "memory");
 }
 
+// d += a * B, m64n32k8
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
 // d += a * B, m64n16k8
 __device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -155,6 +174,10 @@ __device__ __forceinline__ void wgmma3(float (&d)[N], const uint32_t (&a_big)[4]
     wgmma_n64(d, a_small, smem_desc(b_big));
     wgmma_n64(d, a_big, smem_desc(b_small));
     wgmma_n64(d, a_big, smem_desc(b_big));
+  } else if constexpr (N == 16) {
+    wgmma_n32(d, a_small, smem_desc(b_big));
+    wgmma_n32(d, a_big, smem_desc(b_small));
+    wgmma_n32(d, a_big, smem_desc(b_big));
   } else {
     wgmma_n16(d, a_small, smem_desc(b_big));
     wgmma_n16(d, a_big, smem_desc(b_small));
@@ -163,31 +186,6 @@ __device__ __forceinline__ void wgmma3(float (&d)[N], const uint32_t (&a_big)[4]
 }
 
 // ------------------------------------------------------------ staging
-
-// 16 bytes global -> shared, asynchronously; the bytes past src_bytes (0 or
-// 16) are zero-filled, so a row past the end reads as zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
-}
-
-// 4 bytes, for arrays whose rows are not 16-byte aligned (lse, di)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this thread are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // Copy rows [t0, t0 + kRows) of a (L, 16) float32 array into shared memory,
 // 16 floats a row; rows past L become zeros. All threads of the block take

@@ -75,14 +75,22 @@ __device__ __forceinline__ void wedge_dists(const Geometry& g, float x, float y,
   dist2 = fminf(fabsf(d21), fabsf(d22)) * ind2;
 }
 
-// soft memberships (u0, u1, u2) from the distances; k = 1 / (sqrt(2) eta)
-__device__ __forceinline__ void memberships(float dist1, float dist2, float k1,
-                                            float k2, float u[3]) {
-  const float h1 = 0.5f * (1.f + erff(dist1 * k1));
-  const float h2 = 0.5f * (1.f + erff(dist2 * k2));
+// the soft indicator of one wedge from its distance; k = 1 / (sqrt(2) eta)
+__device__ __forceinline__ float indicator(float dist, float k) {
+  return 0.5f * (1.f + erff(dist * k));
+}
+
+// soft memberships (u0, u1, u2) from the two wedges' indicators
+__device__ __forceinline__ void from_indicators(float h1, float h2, float u[3]) {
   u[0] = (1.f - h1) * (1.f - h2);
   u[1] = h1 * (1.f - h2);
   u[2] = h2;
+}
+
+// soft memberships (u0, u1, u2) from the distances
+__device__ __forceinline__ void memberships(float dist1, float dist2, float k1,
+                                            float k2, float u[3]) {
+  from_indicators(indicator(dist1, k1), indicator(dist2, k2), u);
 }
 
 // eta = 10^(2 erf(c) - 2)

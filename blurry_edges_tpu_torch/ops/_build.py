@@ -3,7 +3,7 @@ plain C interface, at first use, and load it with ctypes.
 
 Each ``.cu`` source is compiled by its own ``nvcc`` process, all started
 together, then linked into ``_build/libkernels_<hash>.so``. The hash covers
-the sources, the header and the flags, so an edited source rebuilds. Needs
+the sources, the headers and the flags, so an edited source rebuilds. Needs
 ``nvcc`` (on PATH, under $CUDA_HOME, or /usr/local/cuda); no PyTorch
 headers, no ninja.
 """
@@ -23,8 +23,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("wedge_colors.cu", "wedge_render.cu", "flash_attn_fwd.cu",
-           "flash_attn_bwd_dkv.cu", "flash_attn_bwd.cu")
-HEADERS = ("wedge_common.cuh", "flash_mma.cuh")
+           "flash_attn_bwd_dkv.cu", "flash_attn_bwd_dq.cu")
+HEADERS = ("wedge_common.cuh", "async_copy.cuh", "flash_mma.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -32,6 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "wedge_colors_launch": [_P, _P, _P, _I, _I, _F, _F, _P],
     "wedge_render_launch": [_P] * 9 + [_I, _I, _I, _F, _F, _I] + [_F] * 8 + [_P],
+    "wedge_render_smem_bytes": [_I],
     "flash_attn_fwd_launch": [_P] * 5 + [_I, _I, _F, _P],
     "flash_attn_bwd_dkv_launch": [_P] * 8 + [_I, _I, _F, _P],
     "flash_attn_bwd_dq_launch": [_P] * 7 + [_I, _I, _F, _P],

@@ -5,9 +5,9 @@ Replaces the library TPU kernels behind the JAX package's
 ``models/global_stage.py::flash_attention_fn``
 (``jax.experimental.pallas.ops.tpu.flash_attention``: the forward, the
 dK/dV backward and the dQ backward). CUDA sources: ``csrc/flash_attn_fwd.cu``
-(``flash_fwd``) and ``csrc/flash_attn_bwd_dkv.cu`` (``flash_bwd_dkv``), both
-on the tensor cores in 3xTF32 (``csrc/flash_mma.cuh``), and
-``csrc/flash_attn_bwd.cu`` (``flash_bwd_dq``, float32 FMA).
+(``flash_fwd``), ``csrc/flash_attn_bwd_dkv.cu`` (``flash_bwd_dkv``) and
+``csrc/flash_attn_bwd_dq.cu`` (``flash_bwd_dq``), all three on the tensor
+cores in 3xTF32 (``csrc/flash_mma.cuh``).
 
 Layout (B, H, L, D) float32, contiguous, D = 16, as the JAX function moves
 its operands to. A wrapper given CUDA tensors checks them and launches its

@@ -6,8 +6,9 @@
 From the repository root, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``). It builds the five kernels from ``csrc/`` (the two wedge
 kernels and flash attention's forward, dK/dV and dQ), prints ptxas's
-registers, shared memory and spills of the two tensor-core flash kernels
-and fails if their SASS holds no tensor-core instruction, holds each kernel
+registers, shared memory and spills of the three tensor-core flash kernels
+and of the render, fails if a flash kernel's SASS holds no tensor-core
+instruction, holds each kernel
 against its plain PyTorch version at the shapes of the path that runs it
 and on degenerate or ragged inputs, and drives both slices of the port with
 seeded random full-width weights: it serves a few 147x147 pairs through the
@@ -15,8 +16,10 @@ estimators, and trains the global stage at full width (147x147, 4,096
 tokens, 8 layers, batch 8) for three epochs on a seeded synthetic dataset
 in a temporary directory, then resumes it. It checks the outputs (shapes,
 finite values, the launch counts of each path, flash against matmul
-attention, the card against the CPU at a small size), times the kernels,
-the serving paths and the training step, and prints as its last line
+attention, the card against the CPU at a small size), times the kernels
+(the wedge kernels also with the L2 cache flushed before each launch, as
+the serving path finds their inputs after the local CNN), the serving
+paths and the training step, and prints as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Without a CUDA device it exits non-zero at once.
 
@@ -82,11 +85,12 @@ COLORS_OPS_PER_PIXEL = 150
 RENDER_OPS_PER_PIXEL = 420
 # float32 operations a (query, key) pair per head dim D, from the notes at
 # the head of csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd_dkv.cu and
-# csrc/flash_attn_bwd.cu
+# csrc/flash_attn_bwd_dq.cu
 FLASH_OPS_PER_PAIR_D = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
 # the kernels on the tensor cores in 3xTF32 (three TF32 products for each
 # float32 one), with their sources
-TENSOR_CORE_KERNELS = {"flash_fwd": "flash_attn_fwd.cu", "flash_bwd_dkv": "flash_attn_bwd_dkv.cu"}
+TENSOR_CORE_KERNELS = {"flash_fwd": "flash_attn_fwd.cu", "flash_bwd_dkv": "flash_attn_bwd_dkv.cu",
+                       "flash_bwd_dq": "flash_attn_bwd_dq.cu"}
 FLASH_SHAPE = (2, 8, 4096, 16)   # a training chunk: 2 samples, 8 heads, 4,096 tokens
 FLASH_SCALE = 0.25               # 1 / sqrt(16)
 N_TRAIN, N_VAL, BATCH, LR = 16, 8, 8, 1e-4
@@ -177,6 +181,37 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_cold(fn, iters: int) -> float:
+    """Mean device time of fn() with the L2 cache flushed before each call
+    (a 256 MB buffer zeroed outside the timed span), as a caller finds its
+    inputs after other work has run."""
+    scrub = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    spans = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for start, end in spans:
+        scrub.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in spans) / iters
+
+
+def time_wedge(inp, case, patch_cfg, dfd) -> dict:
+    """(kernel, case, "warm" or "cold") -> device ms of both wedge kernels on
+    a path's inputs (path_inputs): back to back, and with the L2 cache
+    flushed before each launch."""
+    fns = {"wedge_colors": lambda: wedge_cuda.wedge_colors(inp["params"], inp["flat"], patch_cfg),
+           "wedge_render": lambda: wedge_cuda.wedge_render(
+               inp["xy"], inp["etas"], inp["img_patches"], patch_cfg, dfd, RHO_PRIME, False)}
+    out = {}
+    for name, fn in fns.items():
+        out[name, case, "warm"] = cuda_ms(fn, 50)
+        out[name, case, "cold"] = cuda_ms_cold(fn, 20)
+    return out
+
+
 def compare_colors(got, want):
     """Kernel 1 against its plain version: rtol 2e-3, atol 2e-4 (float32 sums
     in another order, amplified by the Cayley-Hamilton determinant)."""
@@ -229,6 +264,17 @@ def path_inputs(mods, pairs, patch_cfg, grid, dev):
     return dict(flat=flat, params=params, src=src, xy=den[..., :8].contiguous(),
                 etas=params2etas(den[..., 8:]).contiguous(),
                 img_patches=patches.reshape((B, 2) + patches.shape[1:]))
+
+
+def random_render_inputs(B, Hp, Wp, R, seed, dev):
+    """Random geometry, etas and pair patches of a (B, Hp, Wp) grid of RxR
+    patches."""
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.cat([torch.rand((B, Hp, Wp, 4), generator=g) * 1.6 - 0.8,
+                    torch.rand((B, Hp, Wp, 4), generator=g) * 2 * np.pi], -1)
+    etas = params2etas(torch.randn((B, Hp, Wp, 4), generator=g))
+    imgs = torch.rand((B, 2, Hp, Wp, R, R, 3), generator=g)
+    return xy.to(dev), etas.to(dev), imgs.to(dev)
 
 
 def make_pairs(rng, n, H):
@@ -504,6 +550,8 @@ def main() -> int:
           f"{len(lib.log.split('== ')) - 1} sources -> {lib.path.name}; ptxas: {regs}")
     for name, source in TENSOR_CORE_KERNELS.items():
         print(f"ptxas {name} ({source}): {ptxas_line(lib.log, source)}")
+    print(f"ptxas wedge_render (wedge_render.cu): {ptxas_line(lib.log, 'wedge_render.cu')}; "
+          f"dynamic shared memory {lib.cdll.wedge_render_smem_bytes(PatchConfig().R)} B a block")
     mma_counts = tensor_core_counts(lib.path, list(TENSOR_CORE_KERNELS))
     print(f"sass: tensor-core instructions (HMMA/HGMMA) by kernel {mma_counts}")
     for name, n in mma_counts.items():
@@ -524,12 +572,6 @@ def main() -> int:
         params, flat, xy, etas = one["params"], one["flat"], one["xy"], one["etas"]
         img_patches = one["img_patches"]
 
-        def random_geometry(B, seed):
-            g = torch.Generator().manual_seed(seed)
-            xy_ = torch.cat([torch.rand((B, Hp, Hp, 4), generator=g) * 1.6 - 0.8,
-                             torch.rand((B, Hp, Hp, 4), generator=g) * 2 * np.pi], -1)
-            return xy_.to(dev), params2etas(torch.randn((B, Hp, Hp, 4), generator=g)).to(dev)
-
         zero_params = torch.zeros_like(params)
         zero_params[:, 8:] = 2.0
 
@@ -545,10 +587,13 @@ def main() -> int:
         render_cases = (
             ("single-pair path", xy, etas, img_patches),
             (f"batched path x{N_PAIRS}", four["xy"], four["etas"], four["img_patches"]),
-            ("random geometry", *random_geometry(1, SEED + 1), img_patches),
-            (f"random geometry x{N_PAIRS}", *random_geometry(N_PAIRS, SEED + 3),
-             four["img_patches"]),
-            ("degenerate", torch.zeros_like(xy), torch.full_like(etas, 0.01), img_patches))
+            ("random geometry", *random_render_inputs(1, Hp, Hp, R, SEED + 1, dev)[:2],
+             img_patches),
+            (f"random geometry x{N_PAIRS}",
+             *random_render_inputs(N_PAIRS, Hp, Hp, R, SEED + 3, dev)[:2], four["img_patches"]),
+            ("degenerate", torch.zeros_like(xy), torch.full_like(etas, 0.01), img_patches),
+            # ragged: the 587x587 path's 41x41 blocks, 11x11 patches each
+            ("ragged 11x11 grid x3", *random_render_inputs(3, 11, 11, R, SEED + 5, dev)))
         for case, x_, e_, ip in render_cases:
             for hard in (False, True):
                 args = (x_, e_, ip, patch_cfg, dfd, RHO_PRIME, hard)
@@ -733,12 +778,15 @@ def main() -> int:
     print(f"train: one step at 51x51, 2 layers, card (kernels) vs CPU (plain): "
           f"{ {k: float(f'{v:.3g}') for k, v in agree_cpu.items()} } ok")
 
-    # 8. timings
+    # 8. timings; the wedge kernels back to back (warm) and with the L2
+    # cache flushed before each launch (cold: on the serving path the local
+    # CNN runs between unfold and the kernels), at one pair and at x4
     with torch.inference_mode():
-        k_ms = {
-            "wedge_colors": cuda_ms(lambda: wedge_cuda.wedge_colors(params, flat, patch_cfg), 50),
-            "wedge_render": cuda_ms(lambda: wedge_cuda.wedge_render(
-                xy, etas, img_patches, patch_cfg, dfd, RHO_PRIME, False), 50)}
+        w_ms = time_wedge(one, "single", patch_cfg, dfd)
+        # the x4 inputs live only inside the call, out of the peaks measured below
+        w_ms.update(time_wedge(path_inputs(mods, pairs, patch_cfg, grid, dev), f"x{N_PAIRS}",
+                               patch_cfg, dfd))
+        k_ms = {name: w_ms[name, "single", "warm"] for name in ("wedge_colors", "wedge_render")}
         p_ms = {
             "wedge_colors": cuda_ms(lambda: wedge_cuda.wedge_colors_plain(
                 params, flat, patch_cfg), 10),
@@ -758,8 +806,15 @@ def main() -> int:
     ops = {"wedge_colors": 2 * L * R * R * COLORS_OPS_PER_PIXEL,
            "wedge_render": L * R * R * RENDER_OPS_PER_PIXEL}
     for name in k_ms:
-        print(f"time {name}: kernel {k_ms[name]:.4f} ms, plain {p_ms[name]:.4f} ms "
-              f"[{card}]")
+        bound = max(bytes_[name] / HBM_BYTES_PER_S, ops[name] / F32_OPS_PER_S) * 1e3
+        cases = []
+        for case, n in (("single pair", 1), (f"x{N_PAIRS}", N_PAIRS)):
+            key = "single" if n == 1 else f"x{N_PAIRS}"
+            warm, cold = w_ms[name, key, "warm"], w_ms[name, key, "cold"]
+            cases.append(f"{case}: warm {warm:.4f} ms ({n * bound / warm:.1%} of its bound "
+                         f"{n * bound:.4f}), cold {cold:.4f} ms ({n * bound / cold:.1%})")
+        print(f"time {name}: " + "; ".join(cases) + f"; plain {p_ms[name]:.4f} ms (single "
+              f"pair) [{card}]")
     print(f"time stages of one pair (ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" [{card}]")
     with torch.inference_mode():
@@ -845,12 +900,14 @@ def main() -> int:
             launches_by_path={"single": launches_single[name],
                               "batched": launches_batched[name]},
             max_abs_err=errs[name], ms=k_ms[name],
+            ms_by_case={f"{case}_{temp}": w_ms[name, case, temp]
+                        for case in ("single", f"x{N_PAIRS}") for temp in ("warm", "cold")},
             plain_ms=p_ms[name], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None))
     flash_src = {"flash_fwd": ("blurry_edges_tpu_torch/csrc/flash_attn_fwd.cu", "flash_attention.py:589"),
                  "flash_bwd_dkv": ("blurry_edges_tpu_torch/csrc/flash_attn_bwd_dkv.cu", "flash_attention.py:941"),
-                 "flash_bwd_dq": ("blurry_edges_tpu_torch/csrc/flash_attn_bwd.cu", "flash_attention.py:1287")}
+                 "flash_bwd_dq": ("blurry_edges_tpu_torch/csrc/flash_attn_bwd_dq.cu", "flash_attention.py:1287")}
     for name, (src, lib_line) in flash_src.items():
         # bound_ms: the least of the two bounds, the tensor cores' (3xTF32)
         bound, bound_by = f_bound[name]["tensor_core"]

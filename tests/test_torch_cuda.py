@@ -97,6 +97,31 @@ def test_render_kernel_matches_plain(dev, hard, degenerate):
     assert_render_close(got, wedge_cuda.wedge_render_plain(xy, etas, imgs, *args))
 
 
+@pytest.mark.parametrize("hard", [False, True])
+def test_render_kernel_matches_plain_ragged(dev, hard):
+    """Three pairs of the 587x587 path's 41x41 blocks, 11x11 patches each
+    (P = 363): patches' ranges start off 16 bytes (5,292 B a patch) and the
+    last block of warps is short."""
+    g = torch.Generator().manual_seed(9)
+    xy, etas, imgs = render_inputs(g, 3, 11, 11)
+    args = (PATCH, DFD, 10.39, hard)
+    got = wedge_cuda.wedge_render(xy.to(dev), etas.to(dev), imgs.to(dev), *args)
+    torch.cuda.synchronize()
+    assert_render_close(got, wedge_cuda.wedge_render_plain(xy, etas, imgs, *args))
+
+
+def test_render_kernel_repeats_bit_for_bit(dev):
+    """Every sum of the render in a fixed order: a second launch gives the
+    same bits."""
+    g = torch.Generator().manual_seed(10)
+    xy, etas, imgs = (t.to(dev) for t in render_inputs(g, 2, 9, 13))
+    first = wedge_cuda.wedge_render(xy, etas, imgs, PATCH, DFD, 10.39, False)
+    again = wedge_cuda.wedge_render(xy, etas, imgs, PATCH, DFD, 10.39, False)
+    torch.cuda.synchronize()
+    for k in first:
+        assert torch.equal(first[k], again[k]), k
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     params = torch.zeros((4, 10), device=dev)
     pixels = torch.zeros((4, R, R, 3), device=dev)
@@ -150,15 +175,17 @@ def test_flash_kernels_match_plain(dev, shape):
 
 
 def test_tensor_core_flash_kernels_repeat_bit_for_bit(dev):
-    """The forward and dK/dV kernels (tensor cores, 3xTF32) give the same
-    bits on a second launch: every sum in a fixed order, no atomics."""
+    """The forward, dK/dV and dQ kernels (tensor cores, 3xTF32) give the
+    same bits on a second launch: every sum in a fixed order, no atomics."""
     g = torch.Generator().manual_seed(12)
     q, k, v, dout = (torch.randn((1, 2, 4097, 16), generator=g).to(dev) for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v, FLASH_SCALE)
     di = (o * dout).sum(-1)
-    first = (o, lse, *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, di, FLASH_SCALE))
+    first = (o, lse, *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, di, FLASH_SCALE),
+             fa.flash_attention_bwd_dq(q, k, v, dout, lse, di, FLASH_SCALE))
     again = (*fa.flash_attention_fwd(q, k, v, FLASH_SCALE),
-             *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, di, FLASH_SCALE))
+             *fa.flash_attention_bwd_dkv(q, k, v, dout, lse, di, FLASH_SCALE),
+             fa.flash_attention_bwd_dq(q, k, v, dout, lse, di, FLASH_SCALE))
     torch.cuda.synchronize()
     for x, y in zip(first, again):
         assert torch.equal(x, y)

@@ -1,5 +1,6 @@
 """A CPU rehearsal of the arithmetic of the tensor-core flash kernels
-(csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd_dkv.cu): 3xTF32.
+(csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd_dkv.cu,
+csrc/flash_attn_bwd_dq.cu): 3xTF32.
 
 Each float32 operand x of a product splits into big = tf32(x) and small =
 tf32(x - big), ``cvt.rna.tf32.f32`` emulated here (round to nearest on the
@@ -8,7 +9,7 @@ small_a*big_b + big_a*small_b + big_a*big_b in float32. The plain flash
 forward and backward with every product split so (P and dS included) must
 stay within the tolerances the kernels are held to on the card
 (chip_smoke.py, tests/test_torch_cuda.py) against a float64 evaluation:
-1e-5 * scale for o and lse, 1e-4 * scale for dk and dv (scale: the largest
+1e-5 * scale for o and lse, 1e-4 * scale for dk, dv and dq (scale: the largest
 |value| of the float64 result, at least 1). What one TF32 pass gives is
 printed, not asserted (run with -s).
 """
@@ -23,6 +24,7 @@ torch.set_num_threads(1)
 
 SHAPE = (1, 8, 512, 16)
 SCALE = 0.25  # 1/sqrt(16)
+TILE_K = 64   # keys a tile of the dQ kernel
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -48,10 +50,11 @@ def mm1(a, b):
 
 
 def attention(q, k, v, dout, mm):
-    """o, lse, dk, dv of softmax(SCALE * q k^T) v with every product by mm,
-    in the kernels' order: scores in base-2 units from q (forward) or k
-    (backward) scaled by SCALE * log2(e) before the split, exp2, and
-    lse = m * ln(2) + log(l)."""
+    """o, lse, dk, dv, dq of softmax(SCALE * q k^T) v with every product by
+    mm, in the kernels' order: scores in base-2 units from q (forward, dQ) or
+    k (dK/dV) scaled by SCALE * log2(e) before the split, exp2, and
+    lse = m * ln(2) + log(l); dQ sums each 64-key tile's dS K in a fresh
+    accumulator and adds the tiles in order."""
     c = SCALE * math.log2(math.e)
     s = mm(q * c, k.transpose(-1, -2))
     m = s.amax(-1, keepdim=True)
@@ -64,7 +67,12 @@ def attention(q, k, v, dout, mm):
     dv = mm(pt, dout)
     dst = pt * (mm(v, dout.transpose(-1, -2)) - di[..., None, :])
     dk = mm(dst, q) * SCALE
-    return {"o": o, "lse": lse, "dk": dk, "dv": dv}
+    p = torch.exp2(mm(q * c, k.transpose(-1, -2)) - lse[..., None] * math.log2(math.e))
+    ds = p * (mm(dout, v.transpose(-1, -2)) - di[..., None])
+    dq = torch.zeros_like(q)
+    for t0 in range(0, k.shape[-2], TILE_K):
+        dq = dq + mm(ds[..., t0:t0 + TILE_K], k[..., t0:t0 + TILE_K, :])
+    return {"o": o, "lse": lse, "dk": dk, "dv": dv, "dq": dq * SCALE}
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +107,8 @@ def test_tf32_rounds_to_nearest_ties_away():
             <= y.double().abs() * 2.0 ** -21).all()
 
 
-@pytest.mark.parametrize("name,tol", [("o", 1e-5), ("lse", 1e-5), ("dk", 1e-4), ("dv", 1e-4)])
+@pytest.mark.parametrize("name,tol", [("o", 1e-5), ("lse", 1e-5), ("dk", 1e-4), ("dv", 1e-4),
+                                      ("dq", 1e-4)])
 def test_3xtf32_within_the_kernel_tolerances(results, name, tol):
     err, scale = results["3xTF32"][name]
     assert err < tol * scale, f"{name}: {err} >= {tol} * {scale}"
