@@ -35,6 +35,19 @@ __device__ __forceinline__ float edge_dist(float x, float y, float cx, float cy,
   return d;
 }
 
+// one wedge edge at a pixel, for wedge_dists_sq: its squared distance q
+// (with the back-extension behind the corner, as edge_dist) and a value sg
+// with the sign of edge_dist's
+__device__ __forceinline__ void edge_sq(float x, float y, float cx, float cy, float s,
+                                        float c, float w, float& q, float& sg) {
+  const float dx = x - cx, dy = y - cy;
+  const float d = -s * dx + c * dy;
+  const float ax = c * dx + s * dy;
+  const bool back = ax < 0.f;
+  q = back ? d * d + (ax * w) * (ax * w) : d * d;
+  sg = back ? (d < 0.f ? -1.f : 1.f) : d;
+}
+
 // the per-patch trig, done once per patch and not per pixel
 struct Geometry {
   float x0, y0, x1, y1;
@@ -73,6 +86,24 @@ __device__ __forceinline__ void wedge_dists(const Geometry& g, float x, float y,
   const float ind2 = g.sgn2 * ((g.sgn2 * d21 >= 0.f && g.sgn2 * d22 <= 0.f) ? 1.f : -1.f);
   dist1 = fminf(fabsf(d11), fabsf(d12)) * ind1;
   dist2 = fminf(fabsf(d21), fabsf(d22)) * ind2;
+}
+
+// wedge_dists with two square roots a pixel, not four: each wedge's
+// distance as the root of the smaller of its edges' squared distances (the
+// same float32 values up to the rounding of one multiply-add, as
+// sqrt(fl(d * d)) = |d| and the root is monotone). The colors kernel's; the
+// render keeps wedge_dists, where this form measured slower (PERF.md).
+__device__ __forceinline__ void wedge_dists_sq(const Geometry& g, float x, float y,
+                                               float w, float& dist1, float& dist2) {
+  float q11, q12, q21, q22, e11, e12, e21, e22;
+  edge_sq(x, y, g.x0, g.y0, g.s11, g.c11, w, q11, e11);
+  edge_sq(x, y, g.x0, g.y0, g.s12, g.c12, w, q12, e12);
+  edge_sq(x, y, g.x1, g.y1, g.s21, g.c21, w, q21, e21);
+  edge_sq(x, y, g.x1, g.y1, g.s22, g.c22, w, q22, e22);
+  const float ind1 = g.sgn1 * ((g.sgn1 * e11 > 0.f && g.sgn1 * e12 < 0.f) ? 1.f : -1.f);
+  const float ind2 = g.sgn2 * ((g.sgn2 * e21 >= 0.f && g.sgn2 * e22 <= 0.f) ? 1.f : -1.f);
+  dist1 = sqrtf(fminf(q11, q12)) * ind1;
+  dist2 = sqrtf(fminf(q21, q22)) * ind2;
 }
 
 // the soft indicator of one wedge from its distance; k = 1 / (sqrt(2) eta)

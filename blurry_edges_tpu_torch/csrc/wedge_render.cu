@@ -73,32 +73,9 @@ struct RenderConsts {
   float numerator, den_const, den_factor, den_root, intercept, s_cam;
 };
 
-__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
-
 // shared memory a block: each warp's patch's two images (each with room to
 // align it as its source is) for patches of N pixels
 size_t smem_bytes(int N) { return (size_t)kWarps * 2 * round4(3 * N + 3) * 4; }
-
-// a float address's offset in its 16-byte chunk, in floats
-__device__ __forceinline__ int misalign(const void* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
-}
-
-// Queue the copy of src[0 .. n) into dst[m .. m + n), m = misalign(src), by
-// the lanes of a warp: cp.async of 16 bytes for whole chunks, of 4 bytes at
-// the ends.
-__device__ __forceinline__ void stage_range(float* dst, const float* src, int n, int lane) {
-  const int m = misalign(src);
-  const float* base = src - m;
-  for (int q = lane; 4 * q < m + n; q += 32) {
-    const int a = 4 * q;
-    if (a >= m && a + 4 <= m + n) {
-      cp_async16(dst + a, base + a, 16);
-    } else {
-      for (int j = max(a, m); j < min(a + 4, m + n); ++j) cp_async4(dst + j, base + j, 4);
-    }
-  }
-}
 
 // a mask bit into, and out of, the sign of a non-negative float
 __device__ __forceinline__ float with_sign(float x, int bit) {

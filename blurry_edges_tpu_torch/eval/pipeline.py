@@ -4,11 +4,13 @@ sharpened and refocused images and the boundary map.
 The chain (reference blurry_edges_test.py:117-145): unfold the pair into
 2 x L patches; local CNN; wedge colors per patch (wedge_colors kernel);
 19-feature tokens; global transformer; denormalize and params2etas; the full
-render (wedge_render kernel); overlap-add fold; the threshold densify
-(0.05, or 0.0 with hard wedge masks for ``densify="w"``). On CUDA tensors
-both wedge steps are the hand-written kernels; on CPU tensors their plain
-versions. An estimator runs its models in full float32, with TF32 off for
-the call whatever the caller's setting, as the float32 reference does.
+render (wedge_render kernel); overlap-add fold; the densify: a threshold on
+the confidence (0.05, or 0.0 with hard wedge masks for ``densify="w"``), or
+for ``densify="pp"`` the depth-completion U-Net over the folded global
+depth. On CUDA tensors both wedge steps are the hand-written kernels; on
+CPU tensors their plain versions. An estimator runs its models in full
+float32, with TF32 off for the call whatever the caller's setting, as the
+float32 reference does.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from ..config import CamConfig, GridConfig, PatchConfig
 from ..models.global_stage import GlobalStage
 from ..models.local_stage import LocalStage
+from ..models.unet import UNet
 from ..ops.dfd import DfDSolver
 from ..ops.params import denormalize_global_eval
 from ..ops.patchify import fold, fold_count, unfold
@@ -29,15 +32,17 @@ from ..ops.wedge import params2etas
 from ..ops.wedge_cuda import wedge_render
 from ..utils.device import float32_precision, resolve_device
 
-DENSIFY_MODES = (None, "w")  # the pp U-Net is not ported yet
+DENSIFY_MODES = (None, "w", "pp")
 
 
 @dataclasses.dataclass
 class InferenceModules:
-    """The two models of the pipeline, with their weights."""
+    """The models of the pipeline, with their weights; the U-Net only for
+    ``densify="pp"``."""
 
     local_model: LocalStage
     global_model: GlobalStage
+    unet_model: Optional[UNet] = None
 
 
 # The JAX package's render_full (eval/pipeline.py:45-73): pair renders with a
@@ -94,9 +99,14 @@ def _make_estimate_fn(mods: InferenceModules, patch_cfg: PatchConfig,
 
     if densify not in DENSIFY_MODES:
         raise ValueError(f"densify must be one of {DENSIFY_MODES}, got {densify!r}")
+    if densify == "pp" and mods.unet_model is None:
+        raise ValueError("densify='pp' needs InferenceModules.unet_model, the "
+                         "depth-completion U-Net")
     device = resolve_device(device)
     mods.local_model.eval()   # inference: BatchNorm on its running statistics
     mods.global_model.eval()
+    if densify == "pp":
+        mods.unet_model.eval()
     dfd = DfDSolver.from_config(cam, patch_cfg)
     Hp, Wp, L, R = grid.H_patches, grid.W_patches, grid.num_tokens, grid.R
     hard = densify == "w"
@@ -119,8 +129,13 @@ def _make_estimate_fn(mods: InferenceModules, patch_cfg: PatchConfig,
         rend = render_full(xy_angles, etas, img_patches, patch_cfg, dfd,
                            rho_prime, hard)
         out = fold_outputs(rend, grid)
-        out["depth_final"] = torch.where(out["confidence"] > depth_thres,
-                                         out["global_depth"], 0.0)
+        if densify == "pp":
+            # the raw folded depth, not the thresholded one; in eval mode one
+            # pass over the batch is B single-pair passes
+            out["depth_final"] = mods.unet_model(out["global_depth"][:, None])[:, 0]
+        else:
+            out["depth_final"] = torch.where(out["confidence"] > depth_thres,
+                                             out["global_depth"], 0.0)
         return out
 
     return estimate

@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .batchnorm import BatchNorm1d, BatchNorm2d
+
 
 def smish(x):
     """Smish(x) = x * tanh(log(1 + sigmoid(x)))."""
@@ -25,34 +27,6 @@ def smish(x):
 class Smish(nn.Module):
     def forward(self, x):
         return smish(x)
-
-
-class _FlaxBatchNorm:
-    """Flax ``nn.BatchNorm``'s training update: running statistics move by
-    momentum 0.99 (torch's ``momentum=0.01``) toward the batch mean and the
-    biased batch variance (torch's own update takes the unbiased one).
-    Normalisation, eval mode and state-dict keys are torch's."""
-
-    def __init__(self, num_features: int):
-        super().__init__(num_features, momentum=0.01)
-
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
-        dims = [0] + list(range(2, x.dim()))
-        with torch.no_grad():
-            self.running_mean.lerp_(x.mean(dims), self.momentum)
-            self.running_var.lerp_(x.var(dims, unbiased=False), self.momentum)
-            self.num_batches_tracked += 1
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-
-
-class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
-    pass
-
-
-class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
-    pass
 
 
 class ResidualBlock(nn.Module):

@@ -31,6 +31,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "wedge_colors_launch": [_P, _P, _P, _I, _I, _F, _F, _P],
+    "wedge_colors_smem_bytes": [_I],
     "wedge_render_launch": [_P] * 9 + [_I, _I, _I, _F, _F, _I] + [_F] * 8 + [_P],
     "wedge_render_smem_bytes": [_I],
     "flash_attn_fwd_launch": [_P] * 5 + [_I, _I, _F, _P],

@@ -1,9 +1,10 @@
 """Weights for the port's models.
 
-``jax_local_to_torch`` and ``jax_global_to_torch`` map a Flax parameter tree
-of the JAX package (as numpy arrays) onto this package's state dicts, with
-the reference key names: they invert the JAX package's torch -> Flax
-converter (conv HWIO -> OIHW, dense (in, out) -> (out, in), BatchNorm and
+``jax_local_to_torch``, ``jax_global_to_torch`` and ``jax_unet_to_torch`` map
+a Flax parameter tree of the JAX package (as numpy arrays) onto this
+package's state dicts, with the reference key names: they invert the JAX
+package's torch -> Flax converter (conv HWIO -> OIHW, dense (in, out) ->
+(out, in), the transposed convolution's spatial flip, BatchNorm and
 LayerNorm names, the fc1 flatten order, the packed q/k/v). Reading the
 committed Orbax checkpoints needs JAX, so that stays with the caller.
 
@@ -21,6 +22,7 @@ import torch.nn as nn
 
 from ..models.global_stage import GlobalStage, SelfAttention
 from ..models.local_stage import LocalStage
+from ..models.unet import UNet
 from .device import resolve_device
 
 StateDict = Dict[str, torch.Tensor]
@@ -33,6 +35,16 @@ def _t(a) -> torch.Tensor:
 def _conv(sd: StateDict, name: str, p: dict) -> None:
     """flax Conv (kh, kw, I, O) -> torch Conv2d (O, I, kh, kw)."""
     sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _conv_transpose(sd: StateDict, name: str, p: dict) -> None:
+    """flax ConvTranspose (kh, kw, I, O) -> torch ConvTranspose2d (I, O, kh,
+    kw), flipped back on both spatial axes (Flax's kernel is the mirror of
+    torch's)."""
+    w = np.asarray(p["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    sd[f"{name}.weight"] = _t(np.ascontiguousarray(w))
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
@@ -112,6 +124,28 @@ def jax_global_to_torch(params: dict) -> StateDict:
     return sd
 
 
+def _double_conv(sd: StateDict, name: str, p: dict, s: dict) -> None:
+    _conv(sd, f"{name}.0", p["conv1"])
+    _bn(sd, f"{name}.1", p["bn1"], s["bn1"])
+    _conv(sd, f"{name}.3", p["conv2"])
+    _bn(sd, f"{name}.4", p["bn2"], s["bn2"])
+
+
+def jax_unet_to_torch(params: dict, batch_stats: dict) -> StateDict:
+    """Flax UNet (params, batch_stats) -> UNet state dict."""
+    sd: StateDict = {}
+    _double_conv(sd, "inc.double_conv", params["inc"], batch_stats["inc"])
+    for k in range(1, 5):
+        _double_conv(sd, f"down{k}.maxpool_conv.1.double_conv", params[f"down{k}"],
+                     batch_stats[f"down{k}"])
+    for k in range(1, 5):
+        p = params[f"up{k}"]
+        _conv_transpose(sd, f"up{k}.up", p["up"])
+        _double_conv(sd, f"up{k}.conv.double_conv", p["conv"], batch_stats[f"up{k}"]["conv"])
+    _conv(sd, "outc.conv", params["outc"])
+    return sd
+
+
 def _randomize(model: nn.Module, g: torch.Generator) -> None:
     """Seeded weights: fan-in uniform for convolutions and linears, xavier
     uniform for packed q/k/v, perturbed norms and BatchNorm statistics."""
@@ -121,10 +155,15 @@ def _randomize(model: nn.Module, g: torch.Generator) -> None:
 
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                bound = 1.0 / math.sqrt(mod.weight[0].numel())
+            if isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+                # fan-in: in-channels x kernel; an output pixel of the
+                # U-Net's stride-2, 2x2 transposed convolution sees one input pixel
+                fan_in = (mod.in_channels if isinstance(mod, nn.ConvTranspose2d)
+                          else mod.weight[0].numel())
+                bound = 1.0 / math.sqrt(fan_in)
                 uniform(mod.weight, bound)
-                uniform(mod.bias, bound)
+                if mod.bias is not None:
+                    uniform(mod.bias, bound)
             elif isinstance(mod, SelfAttention):
                 w = mod.in_proj_weight
                 uniform(w, math.sqrt(6.0 / (w.shape[0] // 3 + w.shape[1])))
@@ -139,14 +178,21 @@ def _randomize(model: nn.Module, g: torch.Generator) -> None:
                     mod.running_var.add_(1.0)
 
 
-def random_modules(generator: torch.Generator, device="cuda"):
-    """Full-width LocalStage and GlobalStage with seeded random weights, in
-    eval mode on ``device``, as ``eval.pipeline.InferenceModules``."""
+def random_modules(generator: torch.Generator, device="cuda", unet: bool = False):
+    """Full-width LocalStage and GlobalStage (and, with ``unet``, the
+    depth-completion U-Net) with seeded random weights, in eval mode on
+    ``device``, as ``eval.pipeline.InferenceModules``. The two stages take
+    the same draws with or without the U-Net."""
     from ..eval.pipeline import InferenceModules
 
     device = resolve_device(device)
     local, glob = LocalStage(), GlobalStage()
     _randomize(local, generator)
     _randomize(glob, generator)
+    unet_model = None
+    if unet:
+        unet_model = UNet()
+        _randomize(unet_model, generator)
+        unet_model = unet_model.to(device).eval()
     return InferenceModules(local_model=local.to(device).eval(),
-                            global_model=glob.to(device).eval())
+                            global_model=glob.to(device).eval(), unet_model=unet_model)

@@ -7,14 +7,15 @@ From the repository root, on a machine with one CUDA card and the CUDA
 toolkit (``nvcc``). It builds the five kernels from ``csrc/`` (the two wedge
 kernels and flash attention's forward, dK/dV and dQ), prints ptxas's
 registers, shared memory and spills of the three tensor-core flash kernels
-and of the render, fails if a flash kernel's SASS holds no tensor-core
-instruction, holds each kernel
-against its plain PyTorch version at the shapes of the path that runs it
-and on degenerate or ragged inputs, and drives both slices of the port with
-seeded random full-width weights: it serves a few 147x147 pairs through the
-estimators, and trains the global stage at full width (147x147, 4,096
-tokens, 8 layers, batch 8) for three epochs on a seeded synthetic dataset
-in a temporary directory, then resumes it. It checks the outputs (shapes,
+and of both wedge kernels, fails if a flash kernel's SASS holds no
+tensor-core instruction, holds each kernel against its plain PyTorch
+version at the shapes of the path that runs it and on degenerate or ragged
+inputs, and drives both slices of the port with seeded random full-width
+weights: it serves a few 147x147 pairs through the estimators (densify
+none, w and pp, the last through the depth-completion U-Net), and trains
+the global stage at full width (147x147, 4,096 tokens, 8 layers, batch 8)
+for three epochs on a seeded synthetic dataset in a temporary directory,
+then resumes it. It checks the outputs (shapes,
 finite values, the launch counts of each path, flash against matmul
 attention, the card against the CPU at a small size), times the kernels
 (the wedge kernels also with the L2 cache flushed before each launch, as
@@ -63,10 +64,12 @@ from blurry_edges_tpu_torch.ops.wedge import params2etas  # noqa: E402
 from blurry_edges_tpu_torch.train import global_ as tg  # noqa: E402
 from blurry_edges_tpu_torch.train.checkpoint import checkpoint_exists  # noqa: E402
 from blurry_edges_tpu_torch.train.optim import make_optimizer, xavier_reinit  # noqa: E402
+from blurry_edges_tpu_torch.utils.device import float32_precision  # noqa: E402
 from blurry_edges_tpu_torch.utils.weights import random_modules  # noqa: E402
 
 SEED = 0
 N_PAIRS = 4
+DENSIFY = (None, "w", "pp")        # the serving paths, single pair and batched
 RHO_PRIME = 10.39
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
@@ -120,10 +123,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def ptxas_line(log: str, source: str) -> str:
+def ptxas_line(log: str, source: str, entry: str = "") -> str:
     """Registers, shared memory a block and spills of the kernel in
-    ``source``, from the build's ptxas output."""
+    ``source`` (of its first function whose mangled name holds ``entry``,
+    where one does), from the build's ptxas output."""
     part = log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0]
+    part = next((c for c in part.split("Compiling entry function")[1:]
+                 if entry and entry in c.split("\n", 1)[0]), part)
     regs = re.search(r"Used (\d+) registers", part)
     smem = re.search(r"(\d+) bytes smem", part)
     spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
@@ -145,8 +151,9 @@ def tensor_core_counts(lib_path, kernels) -> dict:
 
 
 def matmul_flops(model, x) -> int:
-    """Multiply-add FLOPs (2 a multiply-add) of the convolutions and linear
-    layers of one forward of ``model`` on ``x``, counted by forward hooks."""
+    """Multiply-add FLOPs (2 a multiply-add) of the convolutions (transposed
+    ones too) and linear layers of one forward of ``model`` on ``x``,
+    counted by forward hooks."""
     total = 0
 
     def hook(mod, inputs, out):
@@ -157,8 +164,14 @@ def matmul_flops(model, x) -> int:
         else:
             total += 2 * out.numel() * mod.in_features
 
+    def hook_transposed(mod, inputs, out):   # each input pixel times each kernel tap
+        nonlocal total
+        total += 2 * inputs[0].numel() * mod.out_channels * mod.kernel_size[0] * mod.kernel_size[1]
+
     handles = [m.register_forward_hook(hook) for m in model.modules()
                if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    handles += [m.register_forward_hook(hook_transposed) for m in model.modules()
+                if isinstance(m, torch.nn.ConvTranspose2d)]
     try:
         model(x)
     finally:
@@ -550,6 +563,9 @@ def main() -> int:
           f"{len(lib.log.split('== ')) - 1} sources -> {lib.path.name}; ptxas: {regs}")
     for name, source in TENSOR_CORE_KERNELS.items():
         print(f"ptxas {name} ({source}): {ptxas_line(lib.log, source)}")
+    print(f"ptxas wedge_colors (wedge_colors.cu), the R = 21 instance: "
+          f"{ptxas_line(lib.log, 'wedge_colors.cu', 'ILi21E')}; dynamic shared memory "
+          f"{lib.cdll.wedge_colors_smem_bytes(PatchConfig().R)} B a block")
     print(f"ptxas wedge_render (wedge_render.cu): {ptxas_line(lib.log, 'wedge_render.cu')}; "
           f"dynamic shared memory {lib.cdll.wedge_render_smem_bytes(PatchConfig().R)} B a block")
     mma_counts = tensor_core_counts(lib.path, list(TENSOR_CORE_KERNELS))
@@ -562,7 +578,7 @@ def main() -> int:
     dfd = DfDSolver.from_config(cam, patch_cfg)
     R, Hp, L = grid.R, grid.H_patches, grid.num_tokens
     gen = torch.Generator().manual_seed(SEED)
-    mods = random_modules(gen, dev)
+    mods = random_modules(gen, dev, unet=True)
     rng = np.random.default_rng(SEED)
     pairs = make_pairs(rng, N_PAIRS, grid.H)
 
@@ -576,9 +592,17 @@ def main() -> int:
         zero_params[:, 8:] = 2.0
 
         errs = {"wedge_colors": 0.0, "wedge_render": 0.0}
-        colors_cases = (("single-pair path", params, flat),
+        colors_cases = [("single-pair path", params, flat),
                         (f"batched path x{N_PAIRS}", four["params"], four["flat"]),
-                        ("degenerate", zero_params, flat))
+                        ("degenerate", zero_params, flat),
+                        ("ragged", params[:8191], flat[:8191])]
+        # the pixels' start moved by 1 to 3 floats: with the 5,292-byte
+        # patches, every patch's start lands in each 4-byte class of 16
+        for off in (1, 2, 3):
+            buf = torch.empty(4097 * R * R * 3 + off, device=dev)
+            shifted = buf[off:].view(4097, R, R, 3)
+            shifted.copy_(flat[:4097])
+            colors_cases.append((f"start +{off} floats", params[:4097], shifted))
         for case, p, f in colors_cases:
             e = compare_colors(wedge_cuda.wedge_colors(p, f, patch_cfg),
                                wedge_cuda.wedge_colors_plain(p, f, patch_cfg))
@@ -618,48 +642,65 @@ def main() -> int:
     # 3. serving: each path's launches counted from 0 just before it
     single = {d: make_depth_estimator(mods, patch_cfg, grid, cam, densify=d,
                                       rho_prime=RHO_PRIME, device=dev)
-              for d in (None, "w")}
-    batched = make_batched_depth_estimator(mods, patch_cfg, grid, cam,
-                                           rho_prime=RHO_PRIME, device=dev)
+              for d in DENSIFY}
+    batched = {d: make_batched_depth_estimator(mods, patch_cfg, grid, cam, densify=d,
+                                               rho_prime=RHO_PRIME, device=dev)
+               for d in DENSIFY}
     H = grid.H
     shapes = dict(global_image=(2, H, H, 3), global_shpd=(H, H, 3), global_refoc=(H, H, 3),
                   global_bndry=(H, H), global_depth=(H, H), confidence=(H, H),
                   depth_final=(H, H))
-    wedge_cuda.reset_launch_counts()
-    outs = {d: [fn(p) for p in pairs] for d, fn in single.items()}
-    torch.cuda.synchronize()
-    launches_single = wedge_cuda.launch_counts()
-    wedge_cuda.reset_launch_counts()
-    out_b = batched(np.stack(pairs))
-    torch.cuda.synchronize()
-    launches_batched = wedge_cuda.launch_counts()
-    n_single = len(single) * N_PAIRS
-    print(f"serving: single-pair path, {n_single} calls (densify none, w): "
-          f"launches {launches_single}")
-    print(f"serving: batched path, 1 call of {N_PAIRS} pairs: launches {launches_batched}")
+    outs, out_b, launches_by_path = {}, {}, {}
+    for d, fn in single.items():
+        wedge_cuda.reset_launch_counts()
+        outs[d] = [fn(p) for p in pairs]
+        torch.cuda.synchronize()
+        launches_by_path[f"single_{d}"] = wedge_cuda.launch_counts()
+    for d, fn in batched.items():
+        wedge_cuda.reset_launch_counts()
+        out_b[d] = fn(np.stack(pairs))
+        torch.cuda.synchronize()
+        launches_by_path[f"batched_{d}"] = wedge_cuda.launch_counts()
+    print(f"serving: single-pair paths, {N_PAIRS} calls each, and batched paths, 1 call of "
+          f"{N_PAIRS} pairs each (densify {', '.join(map(str, DENSIFY))}): launches "
+          f"{launches_by_path}")
     # once a call: a single-pair call is one pair, the batched call's one
-    # launch covers its 4 pairs
-    check(launches_single == {"wedge_colors": n_single, "wedge_render": n_single},
-          f"single-pair path launches {launches_single}, want {n_single} of each")
-    check(launches_batched == {"wedge_colors": 1, "wedge_render": 1},
-          f"batched path launches {launches_batched}, want 1 of each")
-    launches = {k: launches_single[k] + launches_batched[k] for k in launches_single}
+    # launch covers its 4 pairs; the pp paths as the others
+    for path, got in launches_by_path.items():
+        n = N_PAIRS if path.startswith("single") else 1
+        check(got == {"wedge_colors": n, "wedge_render": n},
+              f"{path} launches {got}, want {n} of each")
+    launches = {k: sum(c[k] for c in launches_by_path.values()) for k in wedge_cuda.launch_counts()}
     for d, res in outs.items():
         for out in res:
             for k, shp in shapes.items():
                 check(tuple(out[k].shape) == (1,) + shp, f"{k} shape {tuple(out[k].shape)}")
                 check(torch.isfinite(out[k]).all().item(), f"densify {d}: {k} not finite")
-            check((out["depth_final"] > 0).any().item(), f"densify {d}: no depth predicted")
-    for k, shp in shapes.items():
-        check(tuple(out_b[k].shape) == (N_PAIRS, 1) + shp, f"batched {k} shape")
-        check(torch.isfinite(out_b[k]).all().item(), f"batched {k} not finite")
-        # one pass over the batch reorders the CNN's sums; the wedge cascade
-        # amplifies that at thresholds, so bound the bulk and the flip share
-        for i in range(N_PAIRS):
-            d = (out_b[k][i] - outs[None][i][k]).abs().flatten()
-            check(d.kthvalue(int(0.8 * d.numel())).values.item() < 1e-3, f"batched {k} p80")
-            check((d > 0.01).float().mean().item() < 0.05, f"batched {k} flips")
-    print("serving: shapes, finite maps and batched vs single agreement ok")
+            # a randomly weighted U-Net's map has no sign to check, only variation
+            check((out["depth_final"].std() > 0 if d == "pp" else out["depth_final"] > 0)
+                  .any().item(), f"densify {d}: no depth predicted")
+    for d, ob in out_b.items():
+        for k, shp in shapes.items():
+            check(tuple(ob[k].shape) == (N_PAIRS, 1) + shp, f"batched {d} {k} shape")
+            check(torch.isfinite(ob[k]).all().item(), f"batched {d} {k} not finite")
+            # one pass over the batch reorders the CNN's sums; the wedge
+            # cascade amplifies that at thresholds, so bound the bulk and the
+            # flip share
+            for i in range(N_PAIRS):
+                dd = (ob[k][i] - outs[d][i][k]).abs().flatten()
+                check(dd.kthvalue(int(0.8 * dd.numel())).values.item() < 1e-3,
+                      f"batched {d} {k} p80")
+                check((dd > 0.01).float().mean().item() < 0.05, f"batched {d} {k} flips")
+        if d == "pp":
+            # the U-Net's one pass over the batch is B single-pair passes
+            for i in range(N_PAIRS):
+                with torch.inference_mode():
+                    alone = mods.unet_model(ob["global_depth"][i][:, None])[:, 0]
+                err = (ob["depth_final"][i] - alone).abs().max().item()
+                check(err < 1e-4 * max(1.0, alone.abs().max().item()),
+                      f"batched pp: U-Net over the batch vs one pair: {err}")
+    print("serving: shapes, finite maps and batched vs single agreement ok (densify "
+          f"{', '.join(map(str, DENSIFY))})")
 
     # the estimators run their models in float32 whatever the caller set
     seen = []
@@ -667,39 +708,58 @@ def main() -> int:
     def record(mod, args):
         seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
 
-    hooks = [m.register_forward_pre_hook(record) for m in (mods.local_model, mods.global_model)]
+    hooks = [m.register_forward_pre_hook(record)
+             for m in (mods.local_model, mods.global_model, mods.unet_model)]
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
         single[None](pairs[0])
-        batched(np.stack(pairs[:2]))
+        batched[None](np.stack(pairs[:2]))
+        single["pp"](pairs[0])
         after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         for h in hooks:
             h.remove()
-    check(seen == [(False, False)] * 4, f"TF32 inside the estimators: {seen}")
+    check(seen == [(False, False)] * 7, f"TF32 inside the estimators: {seen}")
     check(after == (True, True), f"the estimators did not restore TF32: {after}")
     print("serving: with TF32 left on by the caller, both estimators ran their models "
-          "with it off and restored it")
+          "(the U-Net too, densify pp) with it off and restored it")
 
     # 4. the port on the card against the port on the CPU at a small size
     small = GridConfig(H=41, W=41)
     small_pair = make_pairs(np.random.default_rng(SEED + 2), 1, small.H)[0]
     mods_cpu = copy.deepcopy(mods)
-    mods_cpu.local_model.cpu()
-    mods_cpu.global_model.cpu()
-    for d in (None, "w"):
+    for m in (mods_cpu.local_model, mods_cpu.global_model, mods_cpu.unet_model):
+        m.cpu()
+    for d in DENSIFY:
         got = make_depth_estimator(mods, patch_cfg, small, cam, densify=d, device=dev)(small_pair)
         want = make_depth_estimator(mods_cpu, patch_cfg, small, cam, densify=d,
                                     device="cpu")(small_pair)
         for k in ("global_image", "global_shpd", "global_bndry"):
             g, w = got[k].cpu(), want[k]
             check(torch.allclose(g, w, rtol=5e-3, atol=5e-3), f"card vs CPU {d} {k}")
-        for k in ("global_depth", "confidence", "depth_final"):
+        for k in ("global_depth", "confidence") + (() if d == "pp" else ("depth_final",)):
             dd = (got[k].cpu() - want[k]).abs().flatten()
             q99 = dd.kthvalue(int(np.ceil(0.99 * dd.numel()))).values.item()
             check(q99 < 5e-3, f"card vs CPU {d} {k}: p99 {q99}")
-    print("reference: card vs CPU port at 41x41 (densify none, w) ok")
+        if d == "pp":
+            # the U-Net spreads a knife-edge pixel of global_depth (allowed
+            # above) over its receptive field, as in tests/test_torch_pipeline.py::
+            # assert_pp_depth_close: fed the CPU's global depth, the card's
+            # U-Net gives the CPU's depth_final to rtol 1e-4 (atol 1e-4 x
+            # scale); end to end, p90 under 5e-3 and every pixel within 0.25 x scale
+            w = want["depth_final"]
+            scale = w.abs().max().item()
+            with torch.inference_mode(), float32_precision():
+                fed = mods.unet_model(want["global_depth"][:, None].to(dev))[:, 0].cpu()
+            check(torch.allclose(fed, w, rtol=1e-4, atol=1e-4 * scale),
+                  f"card vs CPU pp: U-Net on the same global depth, max|diff| "
+                  f"{(fed - w).abs().max().item()}")
+            dd = (got["depth_final"].cpu() - w).abs().flatten()
+            q90 = dd.kthvalue(int(np.ceil(0.9 * dd.numel()))).values.item()
+            check(q90 < 5e-3 and dd.max().item() < 0.25 * scale,
+                  f"card vs CPU pp depth_final: p90 {q90}, max {dd.max().item()}")
+    print(f"reference: card vs CPU port at 41x41 (densify {', '.join(map(str, DENSIFY))}) ok")
 
     # 5. training, the main path of the second slice: 3 epochs at full width
     # (147x147, 4,096 tokens, 8 layers, batch 8 in 4 chunks of 2), flash
@@ -792,7 +852,8 @@ def main() -> int:
                 params, flat, patch_cfg), 10),
             "wedge_render": cuda_ms(lambda: wedge_cuda.wedge_render_plain(
                 xy, etas, img_patches, patch_cfg, dfd, RHO_PRIME, False), 10)}
-        # per-stage device time of one pair
+        # per-stage device time of one pair; the U-Net only for densify pp
+        depth_in = outs["pp"][0]["global_depth"][:, None]
         stage_ms = {
             "local_cnn": cuda_ms(lambda: mods.local_model(flat), 5),
             "wedge_colors": k_ms["wedge_colors"],
@@ -800,7 +861,8 @@ def main() -> int:
             "wedge_render": k_ms["wedge_render"],
             "fold": cuda_ms(lambda: fold_outputs(wedge_cuda.wedge_render(
                 xy, etas, img_patches, patch_cfg, dfd, RHO_PRIME, False), grid), 10)
-            - k_ms["wedge_render"]}
+            - k_ms["wedge_render"],
+            "unet": cuda_ms(lambda: mods.unet_model(depth_in), 10)}
     bytes_ = {"wedge_colors": 2 * L * ((10 + R * R * 3) + 9) * 4,
               "wedge_render": L * ((8 + 4 + 2 * R * R * 3) + R * R * 15) * 4}
     ops = {"wedge_colors": 2 * L * R * R * COLORS_OPS_PER_PIXEL,
@@ -826,7 +888,8 @@ def main() -> int:
         # projection (a functional linear) and its q.k^T and probs.v
         per_layer = 2 * L * d_model * 3 * d_model + 4 * L * L * d_model
         flops = {"local_cnn": matmul_flops(mods.local_model, flat),
-                 "global_stage": matmul_flops(gm, src) + per_layer * n_layers}
+                 "global_stage": matmul_flops(gm, src) + per_layer * n_layers,
+                 "unet": matmul_flops(mods.unet_model, depth_in)}
     print("rate of the models' matmuls and convolutions: " + ", ".join(
         f"{k} {f / 1e12:.4f} TFLOP in {stage_ms[k]:.3f} ms = "
         f"{f / stage_ms[k] / 1e9:.2f} TFLOP/s ({f / stage_ms[k] / 1e9 / (F32_OPS_PER_S / 1e12):.1%} "
@@ -841,18 +904,20 @@ def main() -> int:
         torch.cuda.synchronize()
         return iters * n_pairs / (time.perf_counter() - t0)
 
-    torch.cuda.reset_peak_memory_stats()
-    single_rate = pairs_per_s(single[None], pairs[0], 1, 20)
-    single_peak = torch.cuda.max_memory_allocated() / 2**30
-    torch.cuda.reset_peak_memory_stats()
+    def rate_and_peak(fn, arg, n_pairs, iters):
+        torch.cuda.reset_peak_memory_stats()
+        rate = pairs_per_s(fn, arg, n_pairs, iters)
+        return rate, torch.cuda.max_memory_allocated() / 2**30
+
     stacked = np.stack(pairs)
-    batched_rate = pairs_per_s(batched, stacked, N_PAIRS, 5)
-    batched_peak = torch.cuda.max_memory_allocated() / 2**30
-    busy = sum(stage_ms.values()) * single_rate / 1e3
-    print(f"time serving: single pair {single_rate:.3f} pairs/s (peak {single_peak:.2f} GiB, "
-          f"device busy ~{busy:.2f} of the wall time by the stage sum), "
-          f"batched x{N_PAIRS} {batched_rate:.3f} pairs/s (peak {batched_peak:.2f} GiB) "
-          f"[{card}]")
+    for d in DENSIFY:
+        single_rate, single_peak = rate_and_peak(single[d], pairs[0], 1, 20)
+        batched_rate, batched_peak = rate_and_peak(batched[d], stacked, N_PAIRS, 5)
+        busy = sum(v for k, v in stage_ms.items() if d == "pp" or k != "unet") * single_rate / 1e3
+        print(f"time serving (densify {d}): single pair {single_rate:.3f} pairs/s (peak "
+              f"{single_peak:.2f} GiB, device busy ~{busy:.2f} of the wall time by the stage "
+              f"sum), batched x{N_PAIRS} {batched_rate:.3f} pairs/s (peak {batched_peak:.2f} "
+              f"GiB) [{card}]")
 
     # the flash kernels at a training chunk's shape, and the training step
     f_ms, f_plain, f_lib = time_flash(dev)
@@ -897,8 +962,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=tpu,
             launches=launches[name],
-            launches_by_path={"single": launches_single[name],
-                              "batched": launches_batched[name]},
+            launches_by_path={path: c[name] for path, c in launches_by_path.items()},
             max_abs_err=errs[name], ms=k_ms[name],
             ms_by_case={f"{case}_{temp}": w_ms[name, case, temp]
                         for case in ("single", f"x{N_PAIRS}") for temp in ("warm", "cold")},

@@ -7,6 +7,7 @@ that machine need not have, hence --noconftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances as chip_smoke.py states them: colors rtol 2e-3 / atol 2e-4;
+the pp estimator's U-Net as tests/test_torch_pipeline.py holds it;
 render p99.9 |diff| < 1e-3 * scale, under 2e-3 of the entries off by more
 than 0.01 * scale, under 1e-3 of the mask flipped; flash attention max
 |diff| under 1e-5 * scale for o and lse and 1e-4 * scale for the gradients
@@ -84,6 +85,36 @@ def test_colors_kernel_matches_plain(dev, degenerate):
     torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-4)
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_colors_kernel_matches_plain_ragged_unaligned(dev, offset):
+    """P = 4,097 (the last block of warps holds one patch), the pixels
+    starting ``offset`` floats into their buffer: the kernel copies each
+    5,292-byte patch in by 16-byte chunks with 4-byte ends, and every
+    patch's start lands in each 4-byte class of 16 over the patches."""
+    g = torch.Generator().manual_seed(11 + offset)
+    P = 4097
+    params = torch.randn((P, 10), generator=g) * 1.5
+    buf = torch.rand((P * R * R * 3 + offset,), generator=g)
+    pixels = buf[offset:].view(P, R, R, 3)
+    on_card = buf.to(dev)[offset:].view(P, R, R, 3)
+    got = wedge_cuda.wedge_colors(params.to(dev), on_card, PATCH)
+    torch.cuda.synchronize()
+    want = wedge_cuda.wedge_colors_plain(params, pixels, PATCH)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-4)
+
+
+def test_colors_kernel_repeats_bit_for_bit(dev):
+    """Each patch's sums in a fixed order: a second launch gives the same
+    bits."""
+    g = torch.Generator().manual_seed(12)
+    params = (torch.randn((2049, 10), generator=g) * 1.5).to(dev)
+    pixels = torch.rand((2049, R, R, 3), generator=g).to(dev)
+    first = wedge_cuda.wedge_colors(params, pixels, PATCH)
+    again = wedge_cuda.wedge_colors(params, pixels, PATCH)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
 @pytest.mark.parametrize("hard", [False, True])
 @pytest.mark.parametrize("degenerate", [False, True])
 def test_render_kernel_matches_plain(dev, hard, degenerate):
@@ -145,6 +176,36 @@ def test_estimator_on_the_card_launches_both_kernels(dev):
     assert wedge_cuda.launch_counts() == {"wedge_colors": 1, "wedge_render": 1}
     for k, v in out.items():
         assert v.device.type == "cuda" and torch.isfinite(v).all(), k
+
+
+def test_pp_estimator_on_the_card_matches_the_cpu(dev):
+    """densify pp at 41x41: the card (both wedge kernels once each, the
+    U-Net by cuDNN in float32) against the port on the CPU (the plain
+    versions). The maps before the densify as chip_smoke.py holds them; the
+    U-Net fed the CPU's global depth gives the CPU's depth_final to rtol
+    1e-4 (atol 1e-4 x scale), and end to end p90 |diff| < 5e-3 (a
+    knife-edge pixel of global_depth spreads over the U-Net's receptive
+    field, tests/test_torch_pipeline.py::assert_pp_depth_close)."""
+    mods_cpu = random_modules(torch.Generator().manual_seed(0), "cpu", unet=True)
+    mods = random_modules(torch.Generator().manual_seed(0), dev, unet=True)
+    grid = GridConfig(H=41, W=41)
+    img = torch.rand((2, 41, 41, 3), generator=torch.Generator().manual_seed(6))
+    wedge_cuda.reset_launch_counts()
+    got = make_depth_estimator(mods, PATCH, grid, CamConfig(), densify="pp", device=dev)(img)
+    torch.cuda.synchronize()
+    assert wedge_cuda.launch_counts() == {"wedge_colors": 1, "wedge_render": 1}
+    want = make_depth_estimator(mods_cpu, PATCH, grid, CamConfig(), densify="pp",
+                                device="cpu")(img)
+    for k in ("global_image", "global_shpd", "global_bndry"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=5e-3, atol=5e-3)
+    for k in ("global_depth", "confidence"):
+        assert torch.quantile((got[k].cpu() - want[k]).abs().flatten(), 0.99).item() < 5e-3, k
+    scale = want["depth_final"].abs().max().item()
+    with torch.inference_mode(), float32_precision():
+        fed = mods.unet_model(want["global_depth"][:, None].to(dev))[:, 0].cpu()
+    torch.testing.assert_close(fed, want["depth_final"], rtol=1e-4, atol=1e-4 * scale)
+    d = (got["depth_final"].cpu() - want["depth_final"]).abs().flatten()
+    assert torch.quantile(d, 0.9).item() < 5e-3 and d.max().item() < 0.25 * scale
 
 
 FLASH_SCALE = 0.25  # 1/sqrt(16)

@@ -9,7 +9,8 @@ checkpoints is in the slow tier. Tolerances are those tests/test_pipeline.py
 holds the JAX pipeline to against the torch reference: the continuous maps
 rtol/atol 5e-3, and the thresholded depth/confidence maps by their 99th
 percentile |diff| < 5e-3 (a float-level difference can flip a borderline
-pixel between 0 and a metric depth).
+pixel between 0 and a metric depth). The ``pp`` densify's depth_final, the
+U-Net over global_depth, has its own check (``assert_pp_depth_close``).
 """
 
 import os
@@ -41,6 +42,7 @@ from blurry_edges_tpu_torch.models.local_stage import LocalStage
 from blurry_edges_tpu_torch.utils.weights import (jax_global_to_torch,
                                                   jax_local_to_torch,
                                                   random_modules)
+from tests.test_torch_unet import bridged_unet, perturbed_unet_vars
 
 torch.set_num_threads(1)  # torch's and XLA-CPU's thread pools share this process
 
@@ -53,12 +55,13 @@ def to_numpy(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def bridged_modules(local_vars, global_vars, layers):
+def bridged_modules(local_vars, global_vars, layers, unet_vars=None):
     local = LocalStage()
     local.load_state_dict(jax_local_to_torch(local_vars["params"], local_vars["batch_stats"]))
     glob = GlobalStage(num_encoder_layers=layers)
     glob.load_state_dict(jax_global_to_torch(global_vars["params"]))
-    return InferenceModules(local_model=local.eval(), global_model=glob.eval())
+    unet = None if unet_vars is None else bridged_unet(unet_vars)
+    return InferenceModules(local_model=local.eval(), global_model=glob.eval(), unet_model=unet)
 
 
 def assert_maps_close(ours, theirs, densify):
@@ -69,14 +72,37 @@ def assert_maps_close(ours, theirs, densify):
         npt.assert_allclose(ours[k].numpy(), theirs[k], rtol=5e-3, atol=5e-3, err_msg=k)
     npt.assert_allclose(ours["global_refoc"].numpy(), theirs["global_refoc"],
                         rtol=5e-3, atol=2e-2)
-    for k in ("global_depth", "confidence", "depth_final"):
+    thresholded = ("global_depth", "confidence") + (() if densify == "pp" else ("depth_final",))
+    for k in thresholded:
         d = np.abs(ours[k].numpy() - theirs[k])
         assert np.quantile(d, 0.99) < 5e-3, (densify, k, np.quantile(d, 0.99))
 
 
+def assert_pp_depth_close(ours, theirs, unet):
+    """densify pp: depth_final is the U-Net over the folded global_depth. A
+    knife-edge pixel of global_depth (its wedge mask flipped between erff
+    and torch.erf: a jump between 0 and a metric depth, which the 99%
+    quantile above allows) spreads over the U-Net's receptive field; at
+    41x41, one such pixel of 1,681 put depth_final's p99 |diff| at 2-4e-2
+    of a 0.7-0.8 scale. So the U-Net is held exactly where the inputs are
+    the same: the port's U-Net fed JAX's global_depth gives JAX's
+    depth_final to rtol 1e-4, atol 1e-4 x max|depth_final| (the whole
+    difference comes in through global_depth); end to end, the bulk agrees
+    (p90 |diff| < 5e-3) and no pixel is off by more than 0.25 x scale."""
+    want = theirs["depth_final"]
+    scale = np.abs(want).max()
+    with torch.no_grad():
+        fed = unet(torch.tensor(theirs["global_depth"])[:, None])[:, 0].numpy()
+    npt.assert_allclose(fed, want, rtol=1e-4, atol=1e-4 * scale)
+    d = np.abs(ours["depth_final"].numpy() - want)
+    assert np.quantile(d, 0.9) < 5e-3, np.quantile(d, 0.9)
+    assert d.max() < 0.25 * scale, (d.max(), scale)
+
+
 @pytest.fixture(scope="module")
 def small_slice():
-    """Random Flax weights (BatchNorm statistics perturbed), bridged."""
+    """Random Flax weights (BatchNorm statistics perturbed), bridged; the
+    U-Net's as tests/test_torch_unet.py draws them."""
     layers = 2
     key = jax.random.PRNGKey(0)
     grid = JaxGrid(H=H, W=H)
@@ -85,11 +111,13 @@ def small_slice():
     lv["batch_stats"] = jax.tree.map(
         lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32), lv["batch_stats"])
     gv = to_numpy(jg.init(key, jnp.zeros((1, grid.num_tokens, 38))))
-    jax_mods = JaxModules(local_model=jl, local_vars=lv, global_model=jg, global_vars=gv)
-    return jax_mods, bridged_modules(lv, gv, layers)
+    uv = perturbed_unet_vars()
+    jax_mods = JaxModules(local_model=jl, local_vars=lv, global_model=jg, global_vars=gv,
+                          unet_model=jmodels.UNet(), unet_vars=uv)
+    return jax_mods, bridged_modules(lv, gv, layers, uv)
 
 
-@pytest.mark.parametrize("densify", [None, "w"])
+@pytest.mark.parametrize("densify", [None, "w", "pp"])
 def test_slice_matches_jax_estimator(small_slice, densify):
     jax_mods, mods = small_slice
     img = rng.uniform(0, 1, size=(2, H, H, 3)).astype(np.float32)
@@ -99,6 +127,8 @@ def test_slice_matches_jax_estimator(small_slice, densify):
     ours = make_depth_estimator(mods, PatchConfig(), GridConfig(H=H, W=H), CamConfig(),
                                 densify=densify, device="cpu")(img)
     assert_maps_close(ours, theirs, densify)
+    if densify == "pp":
+        assert_pp_depth_close(ours, theirs, mods.unet_model)
 
 
 def test_batched_matches_single():
@@ -121,10 +151,11 @@ def test_batched_matches_single():
 
 @pytest.mark.parametrize("make", [make_depth_estimator, make_batched_depth_estimator])
 def test_estimators_run_in_float32(make):
-    """An estimator turns TF32 off for its models whatever the caller set
+    """An estimator turns TF32 off for its models (the U-Net's too, densify
+    pp) whatever the caller set
     (PyTorch leaves it on for cuDNN convolutions), and gives the caller's
     settings back afterwards."""
-    mods = random_modules(torch.Generator().manual_seed(2), device="cpu")
+    mods = random_modules(torch.Generator().manual_seed(2), device="cpu", unet=True)
     seen = []
 
     def record(mod, args):
@@ -132,20 +163,22 @@ def test_estimators_run_in_float32(make):
                      torch.backends.cudnn.allow_tf32))
 
     handles = [m.register_forward_pre_hook(record)
-               for m in (mods.local_model, mods.global_model)]
+               for m in (mods.local_model, mods.global_model, mods.unet_model)]
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
         imgs = rng.uniform(0, 1, size=(2, H, H, 3)).astype(np.float32)
         if make is make_batched_depth_estimator:
             imgs = imgs[None]
-        make(mods, PatchConfig(), GridConfig(H=H, W=H), CamConfig(), device="cpu")(imgs)
+        make(mods, PatchConfig(), GridConfig(H=H, W=H), CamConfig(), densify="pp",
+             device="cpu")(imgs)
         after = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
         for h in handles:
             h.remove()
-    assert seen == [("LocalStage", False, False), ("GlobalStage", False, False)]
+    assert seen == [("LocalStage", False, False), ("GlobalStage", False, False),
+                    ("UNet", False, False)]
     assert after == (True, True)
 
 
@@ -162,7 +195,36 @@ def test_entry_points_default_to_cuda():
             make(cpu_mods, PatchConfig(), GridConfig(), CamConfig())
     with pytest.raises(ValueError, match="densify"):
         make_depth_estimator(cpu_mods, PatchConfig(), GridConfig(), CamConfig(),
-                             densify="pp", device="cpu")
+                             densify="bogus", device="cpu")
+
+
+@pytest.mark.parametrize("make", [make_depth_estimator, make_batched_depth_estimator])
+def test_pp_needs_a_unet(make):
+    """densify pp without a U-Net in the modules is refused when the
+    estimator is built, not at its first call."""
+    mods = random_modules(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="unet_model"):
+        make(mods, PatchConfig(), GridConfig(H=H, W=H), CamConfig(), densify="pp", device="cpu")
+
+
+def test_batched_pp_matches_single():
+    """The batched estimator runs the U-Net once over (B, 1, H, W); in eval
+    mode that is B single-pair passes (the JAX package vmaps one)."""
+    mods = random_modules(torch.Generator().manual_seed(3), device="cpu", unet=True)
+    grid = GridConfig(H=H, W=H)
+    imgs = rng.uniform(0, 1, size=(2, 2, H, H, 3)).astype(np.float32)
+    batched = make_batched_depth_estimator(mods, PatchConfig(), grid, CamConfig(),
+                                           densify="pp", device="cpu")(imgs)
+    single = make_depth_estimator(mods, PatchConfig(), grid, CamConfig(), densify="pp",
+                                  device="cpu")
+    for i in range(2):
+        out = single(imgs[i])
+        # the U-Net alone on the batched global depth, one pair at a time
+        with torch.no_grad():
+            alone = mods.unet_model(batched["global_depth"][i][:, None])
+        torch.testing.assert_close(batched["depth_final"][i], alone[:, 0], rtol=1e-5, atol=1e-6)
+        d = (batched["depth_final"][i] - out["depth_final"]).abs().numpy()
+        assert np.quantile(d, 0.8) < 1e-3 and np.mean(d > 0.01) < 0.05
 
 
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "blurry_edges_tpu")
@@ -197,10 +259,11 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("densify", [None, "w"])
+@pytest.mark.parametrize("densify", [None, "w", "pp"])
 def test_full_slice_committed_weights(densify):
     """147x147 with the committed checkpoints (the w variant's own global
-    stage for densify w), against the JAX estimator."""
+    stage for densify w, the committed U-Net for densify pp), against the
+    JAX estimator."""
     from blurry_edges_tpu.train.checkpoint import load_checkpoint
 
     weights = ROOT / "pretrained_weights"
@@ -209,9 +272,14 @@ def test_full_slice_committed_weights(densify):
     gc = load_checkpoint(str(weights / gname))
     lv = {"params": to_numpy(lc["params"]), "batch_stats": to_numpy(lc["batch_stats"])}
     gv = {"params": to_numpy(gc["params"])}
+    uv = None
+    if densify == "pp":
+        uc = load_checkpoint(str(weights / "best_run_exp_depth_completion_pp"))
+        uv = {"params": to_numpy(uc["params"]), "batch_stats": to_numpy(uc["batch_stats"])}
     jax_mods = JaxModules(local_model=jmodels.LocalStage(), local_vars=lv,
-                          global_model=jmodels.GlobalStage(), global_vars=gv)
-    mods = bridged_modules(lv, gv, 8)
+                          global_model=jmodels.GlobalStage(), global_vars=gv,
+                          unet_model=None if uv is None else jmodels.UNet(), unet_vars=uv)
+    mods = bridged_modules(lv, gv, 8, uv)
     img = rng.uniform(0, 1, size=(2, 147, 147, 3)).astype(np.float32)
     est = jax_estimator(jax_mods, JaxPatch(), JaxGrid(), JaxCam(), densify=densify)
     with jax.default_matmul_precision("highest"):
@@ -219,3 +287,5 @@ def test_full_slice_committed_weights(densify):
     ours = make_depth_estimator(mods, PatchConfig(), GridConfig(), CamConfig(),
                                 densify=densify, device="cpu")(img)
     assert_maps_close(ours, theirs, densify)
+    if densify == "pp":
+        assert_pp_depth_close(ours, theirs, mods.unet_model)
