@@ -65,12 +65,19 @@ class GridConfig:
         return self.H_patches * self.W_patches
 
 
-def get_args(mode: str, argv: Optional[list] = None) -> argparse.Namespace:
+# blocks of the 587x587 path that run through the networks in one pass
+# (--block_chunk): the fastest of the H100 sweep in PERF.md
+BLOCK_CHUNK = 4
+
+
+def get_args(mode: str, big: bool = False, argv: Optional[list] = None) -> argparse.Namespace:
     """The argument set of one entry mode, flag for flag with the JAX
-    package's ``get_args``. Ported modes: ``global_train``. ``--cuda`` names
-    the device the run uses. Pass ``argv=[]`` for the defaults."""
-    if mode != "global_train":
-        raise ValueError(f"mode {mode!r} is not ported; ported: 'global_train'")
+    package's ``get_args``. Ported modes: ``global_train`` and ``eval``
+    (``big`` for the 587x587 path). ``--cuda`` names the device the run uses;
+    ``--block_chunk`` defaults to ``BLOCK_CHUNK``. Pass ``argv=[]`` for the
+    defaults."""
+    if mode not in ("global_train", "eval"):
+        raise ValueError(f"mode {mode!r} is not ported; ported: 'global_train', 'eval'")
     parser = argparse.ArgumentParser()
     add = parser.add_argument
     add('--cuda', type=str, default='cuda:0', help='device of the run')
@@ -85,6 +92,31 @@ def get_args(mode: str, argv: Optional[list] = None) -> argparse.Namespace:
                  'sigma_cam': 0.003, 'pixel_pitch': 5.86e-6},
         help='camera parameters')
     add('--mag', type=float, default=4, help='magnification factor')
+
+    if mode == 'eval':
+        add('--stride', type=int, default=2, help='stride')
+        add('--log_path', type=str, default='./logs', help='path of logs')
+        add('--batch_size', type=int, default=1, help='batch size')
+        add('--crop', type=int, default=10, help='center crop')
+        add('--rho_prime', type=float, default=10.39, help='equivalent optical power for refocusing')
+        add('--densify', type=str, default=None, choices=[None, 'pp', 'w'],
+            help='densification method, set None to disable')
+        add('--serve_dtype', type=str, default='float32', choices=['float32', 'bfloat16'],
+            help='compute dtype of the three networks (weights stay float32); the wedge, '
+                 'DfD and fold chain and the confidence threshold stay float32')
+        add('--vis_max', type=int, default=0,
+            help='write the 10-panel visualization for only the first N pairs (0 = all)')
+        add('--dp_devices', type=int, default=0,
+            help='data-parallel devices (0/1 = one device; more is not ported)')
+        if big:
+            add('--n_margin_patch', type=int, default=10,
+                help='number of margin patches that will be removed for global maps')
+            add('--block_chunk', type=int, default=BLOCK_CHUNK,
+                help='blocks run through the networks in one pass on the big path')
+            add('--data_path', type=str, default='./data/data_test_big', help='path of dataset')
+        else:
+            add('--data_path', type=str, default='./data/data_test', help='path of dataset')
+        return parser.parse_args(argv)
 
     add('--stride', type=int, default=2, help='stride')
     add('--data_path', type=str, default='./data/data_train_val', help='path of dataset')

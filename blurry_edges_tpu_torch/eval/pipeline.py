@@ -10,12 +10,22 @@ for ``densify="pp"`` the depth-completion U-Net over the folded global
 depth. On CUDA tensors both wedge steps are the hand-written kernels; on
 CPU tensors their plain versions. An estimator runs its models in full
 float32, with TF32 off for the call whatever the caller's setting, as the
-float32 reference does.
+float32 reference does; models built with ``dtype=torch.bfloat16`` (the
+``--serve_dtype bfloat16`` of ``run_eval``) compute in bfloat16, and their
+outputs are cast back to float32 where the JAX package casts them: the
+local CNN's in ``local_tokens``, the global stage's and the U-Net's here.
+Everything after those casts (the wedge kernels, DfD, fold and the 0.05
+threshold) is float32.
+
+``run_eval`` is the dataset loop of the JAX package's ``run_eval``
+(reference blurry_edges_test.py:102-172) on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -90,13 +100,42 @@ def _as_tensor(imgs) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(imgs, dtype=np.float32))
 
 
+def make_render_fn(mods: InferenceModules, patch_cfg: PatchConfig,
+                   grid: GridConfig, cam: CamConfig, hard_mask: bool,
+                   rho_prime: float) -> Callable:
+    """(B, 2, H, W, 3) float32 image pairs on the models' device -> the
+    render of every patch (``render_full``'s dict, leading B axis): local
+    tokens, the global stage (its output cast to float32), denormalize and
+    params2etas, the render. The per-pair (and, on the 587x587 path, the
+    per-block) core; the caller sets eval mode, inference mode and the
+    precision."""
+    from ..train.global_precal import local_tokens
+
+    dfd = DfDSolver.from_config(cam, patch_cfg)
+    Hp, Wp, L, R = grid.H_patches, grid.W_patches, grid.num_tokens, grid.R
+
+    def render(imgs):
+        B = imgs.shape[0]
+        tokens, _ = local_tokens(mods.local_model, imgs, patch_cfg, grid)  # (B,2,L,19)
+        src = tokens.permute(0, 2, 1, 3).reshape(B, L, 38)
+        est = mods.global_model(src).float()
+        den = denormalize_global_eval(est).reshape(B, Hp, Wp, 12)
+        xy_angles = den[..., :8].contiguous()
+        etas = params2etas(den[..., 8:]).contiguous()
+
+        img_patches = unfold(imgs.reshape((B * 2,) + imgs.shape[2:]), R, grid.stride)
+        img_patches = img_patches.reshape((B, 2) + img_patches.shape[1:])
+        return render_full(xy_angles, etas, img_patches, patch_cfg, dfd,
+                           rho_prime, hard_mask)
+
+    return render
+
+
 def _make_estimate_fn(mods: InferenceModules, patch_cfg: PatchConfig,
                       grid: GridConfig, cam: CamConfig,
                       densify: Optional[str], rho_prime: float,
                       device) -> Callable:
     """(B, 2, H, W, 3) image pairs -> maps with a leading B axis."""
-    from ..train.global_precal import local_tokens
-
     if densify not in DENSIFY_MODES:
         raise ValueError(f"densify must be one of {DENSIFY_MODES}, got {densify!r}")
     if densify == "pp" and mods.unet_model is None:
@@ -107,32 +146,19 @@ def _make_estimate_fn(mods: InferenceModules, patch_cfg: PatchConfig,
     mods.global_model.eval()
     if densify == "pp":
         mods.unet_model.eval()
-    dfd = DfDSolver.from_config(cam, patch_cfg)
-    Hp, Wp, L, R = grid.H_patches, grid.W_patches, grid.num_tokens, grid.R
     hard = densify == "w"
     depth_thres = 0.0 if hard else 0.05
+    render = make_render_fn(mods, patch_cfg, grid, cam, hard, rho_prime)
 
     @torch.inference_mode()
     @float32_precision()
     def estimate(imgs):
         imgs = imgs.to(device=device, dtype=torch.float32)
-        B = imgs.shape[0]
-        tokens, _ = local_tokens(mods.local_model, imgs, patch_cfg, grid)  # (B,2,L,19)
-        src = tokens.permute(0, 2, 1, 3).reshape(B, L, 38)
-        est = mods.global_model(src)
-        den = denormalize_global_eval(est).reshape(B, Hp, Wp, 12)
-        xy_angles = den[..., :8].contiguous()
-        etas = params2etas(den[..., 8:]).contiguous()
-
-        img_patches = unfold(imgs.reshape((B * 2,) + imgs.shape[2:]), R, grid.stride)
-        img_patches = img_patches.reshape((B, 2) + img_patches.shape[1:])
-        rend = render_full(xy_angles, etas, img_patches, patch_cfg, dfd,
-                           rho_prime, hard)
-        out = fold_outputs(rend, grid)
+        out = fold_outputs(render(imgs), grid)
         if densify == "pp":
             # the raw folded depth, not the thresholded one; in eval mode one
             # pass over the batch is B single-pair passes
-            out["depth_final"] = mods.unet_model(out["global_depth"][:, None])[:, 0]
+            out["depth_final"] = mods.unet_model(out["global_depth"][:, None])[:, 0].float()
         else:
             out["depth_final"] = torch.where(out["confidence"] > depth_thres,
                                              out["global_depth"], 0.0)
@@ -172,3 +198,104 @@ def make_batched_depth_estimator(mods: InferenceModules, patch_cfg: PatchConfig,
         return {k: v[:, None] for k, v in fn(_as_tensor(img_pairs)).items()}
 
     return estimate
+
+
+def synchronize(device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def score_pairs(args, ds, n: int, estimate, device, visualizer=None) -> dict:
+    """The evaluation loop of the JAX package's ``run_eval`` and
+    ``run_eval_big``: each pair timed from its numpy array to a finished
+    device (the JAX loop times ``jnp.asarray`` to ``block_until_ready``),
+    per-image metrics and prints, images with no predicted pixel inside the
+    crop excluded from the averages (their masked metrics are 0/0), and the
+    dataset averages. ``estimate`` maps a (2, H, W, 3) numpy pair to maps
+    with a leading axis of 1 and has been called once already."""
+    from .metrics import eval_depth
+
+    totals = np.zeros(5)
+    total_time = 0.0
+    n_scored = 0
+    for j in range(n):
+        img_ny, gt_depth = ds[j]
+        t0 = time.time()
+        out = estimate(img_ny)
+        synchronize(device)
+        dt = time.time() - t0
+        total_time += dt
+        depth = out["depth_final"].cpu().numpy()
+        msk = depth > 0.0
+        inner = msk[:, args.crop:-args.crop, args.crop:-args.crop] \
+            if args.crop > 0 else msk
+        if not inner.any():
+            # zero predicted pixels: the masked metrics are 0/0 (undefined);
+            # exclude the image from the average instead of poisoning it
+            # with nan, and say so
+            print(f"Image pair #{j}: no predicted pixels above threshold; "
+                  f"excluded from averages, time ={dt: .3f} s", flush=True)
+            continue
+        m = eval_depth(depth, gt_depth[None], msk, crop=args.crop)
+        totals += np.asarray(m)
+        n_scored += 1
+        print(f"Image pair #{j}: delta1 ={m[0]: .3f}, delta2 ={m[1]: .3f}, "
+              f"delta3 ={m[2]: .3f}, RMSE ={m[3]: .3f} cm, AbsRel ={m[4]: .3f} cm, "
+              f"time ={dt: .3f} s", flush=True)
+        if visualizer is not None:
+            visualizer(j, img_ny, gt_depth, {k: v.cpu().numpy() for k, v in out.items()})
+
+    if n_scored < n:
+        print(f"\n{n - n_scored}/{n} images had empty predictions and were "
+              f"excluded from the metric averages", flush=True)
+    avg = totals / max(n_scored, 1)
+    # the subset basis travels with the summary line itself
+    basis = f" (over {n_scored}/{n} scored images)" if n_scored < n else ""
+    print(f"\nAverage running time:{total_time / n: .3f} s")
+    print(f"Average metrics for whole dataset: delta1 ={avg[0]: .3f}, "
+          f"delta2 ={avg[1]: .3f}, delta3 ={avg[2]: .3f}, RMSE ={avg[3]: .3f} cm, "
+          f"AbsRel ={avg[4]: .3f} cm{basis}", flush=True)
+    return dict(delta1=avg[0], delta2=avg[1], delta3=avg[2], rmse=avg[3],
+                absrel=avg[4], avg_time=total_time / n,
+                pairs_per_sec=n / total_time)
+
+
+def check_single_device(args) -> None:
+    if int(getattr(args, "dp_devices", 0) or 0) > 1:
+        raise NotImplementedError(
+            "--dp_devices > 1 is not ported (ROADMAP.md queue 1, item 8: parallelism)")
+
+
+def run_eval(args, modules: InferenceModules, visualizer=None, max_images=None,
+             profile_dir: Optional[str] = None, device="cuda") -> dict:
+    """147x147 dataset evaluation (the JAX package's ``run_eval``, one
+    device): ``args`` from ``config.get_args("eval")``, the models on
+    ``device``. The warm-up call on pair 0 is outside the timed loop.
+    ``profile_dir`` writes a ``torch.profiler`` trace of the timed loop
+    there (``trace.json``). Returns delta1..3, rmse, absrel (averages over
+    the scored images), avg_time and pairs_per_sec."""
+    from ..config import cam_from_args, grid_from_args, patch_from_args
+    from ..data.datasets import TestDataset
+
+    check_single_device(args)
+    device = resolve_device(device)
+    estimate = make_depth_estimator(modules, patch_from_args(args), grid_from_args(args),
+                                    cam_from_args(args), densify=args.densify,
+                                    rho_prime=args.rho_prime, device=device)
+    ds = TestDataset(args.data_path)
+    n = len(ds) if max_images is None else min(max_images, len(ds))
+
+    estimate(ds[0][0])            # warm-up, outside the timed region
+    synchronize(device)
+    if not profile_dir:
+        return score_pairs(args, ds, n, estimate, device, visualizer)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        res = score_pairs(args, ds, n, estimate, device, visualizer)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    return res

@@ -10,6 +10,13 @@ concatenated. Module names follow the reference state dict
 (``inc.double_conv.0``, ``down{k}.maxpool_conv.1.double_conv.*``,
 ``up{k}.up``, ``up{k}.conv.double_conv.*``, ``outc.conv``), so a reference
 ``.pth`` loads as is.
+
+``dtype=torch.bfloat16`` computes as the JAX package's ``UNet(dtype=
+jnp.bfloat16)``: the convolutions and the transposed convolutions cast
+their input and parameters to bfloat16 (``models/layers.py``), BatchNorm
+computes in float32 and returns bfloat16, and ReLU, pooling, padding and
+concatenation run in bfloat16; the output is bfloat16 and the caller casts
+it back.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .batchnorm import BatchNorm2d
+from .layers import Conv2d, ConvTranspose2d, set_compute_dtype
 
 
 class DoubleConv(nn.Module):
@@ -27,9 +35,9 @@ class DoubleConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.double_conv = nn.Sequential(
-            nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
+            Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
             BatchNorm2d(out_channels), nn.ReLU(inplace=True),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
+            Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
             BatchNorm2d(out_channels), nn.ReLU(inplace=True))
 
     def forward(self, x):
@@ -53,7 +61,7 @@ class Up(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
+        self.up = ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
         self.conv = DoubleConv(in_channels, out_channels)
 
     def forward(self, x, skip):
@@ -66,7 +74,7 @@ class Up(nn.Module):
 class OutConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 1)
+        self.conv = Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x):
         return self.conv(x)
@@ -75,7 +83,7 @@ class OutConv(nn.Module):
 class UNet(nn.Module):
     """(B, n_channels, H, W) -> (B, n_classes, H, W)."""
 
-    def __init__(self, n_channels: int = 1, n_classes: int = 1):
+    def __init__(self, n_channels: int = 1, n_classes: int = 1, dtype=torch.float32):
         super().__init__()
         self.inc = DoubleConv(n_channels, 64)
         self.down1 = Down(64, 128)
@@ -87,6 +95,7 @@ class UNet(nn.Module):
         self.up3 = Up(256, 128)
         self.up4 = Up(128, 64)
         self.outc = OutConv(64, n_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x):
         x1 = self.inc(x)

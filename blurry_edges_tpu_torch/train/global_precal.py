@@ -36,7 +36,9 @@ def local_tokens(model: LocalStage, img_pairs, patch_cfg: PatchConfig,
     patches = unfold(img_pairs.reshape((B * 2,) + img_pairs.shape[2:]),
                      R, grid.stride)                         # (2B, Hp, Wp, R, R, 3)
     flat = patches.reshape(B * 2 * L, R, R, 3)
-    params = wrap_local_params(model(flat))                  # (2BL, 10)
+    # a bfloat16 CNN's output is cast back here: the colors and tokens are
+    # float32 (the JAX package's global_precal.py:108)
+    params = wrap_local_params(model(flat).float())          # (2BL, 10)
     colors = solve_patch_colors(params, flat, patch_cfg)     # (2BL, 3, 3)
     tokens = normalize_token_features(params, colors)
     return tokens.reshape(B, 2, L, 19), params.reshape(B, 2, L, 10)

@@ -9,12 +9,21 @@ LayerNorm names, the fc1 flatten order, the packed q/k/v). Reading the
 committed Orbax checkpoints needs JAX, so that stays with the caller.
 
 ``random_modules`` builds seeded full-width models for runs without weights.
+
+``load_inference_modules`` builds the models of an evaluation from
+``<model_path>/<name>.pth`` state dicts (reference keys: a reference
+``pretrained_*.pth`` and one written by the root tool
+``export_torch_assets.py`` from a committed checkpoint load the same way),
+resolving each stage by the JAX package's names and order
+(``utils/weights.py:28-103`` there), and prints the file each stage
+resolved to.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -178,21 +187,94 @@ def _randomize(model: nn.Module, g: torch.Generator) -> None:
                     mod.running_var.add_(1.0)
 
 
-def random_modules(generator: torch.Generator, device="cuda", unet: bool = False):
+def random_modules(generator: torch.Generator, device="cuda", unet: bool = False,
+                   dtype=torch.float32):
     """Full-width LocalStage and GlobalStage (and, with ``unet``, the
     depth-completion U-Net) with seeded random weights, in eval mode on
-    ``device``, as ``eval.pipeline.InferenceModules``. The two stages take
-    the same draws with or without the U-Net."""
+    ``device``, computing in ``dtype``, as ``eval.pipeline.InferenceModules``.
+    The two stages take the same draws with or without the U-Net, and in
+    either dtype."""
     from ..eval.pipeline import InferenceModules
 
     device = resolve_device(device)
-    local, glob = LocalStage(), GlobalStage()
+    local, glob = LocalStage(dtype=dtype), GlobalStage(dtype=dtype)
     _randomize(local, generator)
     _randomize(glob, generator)
     unet_model = None
     if unet:
-        unet_model = UNet()
+        unet_model = UNet(dtype=dtype)
         _randomize(unet_model, generator)
         unet_model = unet_model.to(device).eval()
     return InferenceModules(local_model=local.to(device).eval(),
                             global_model=glob.to(device).eval(), unet_model=unet_model)
+
+
+LOCAL_NAMES = ("pretrained_local_stage", "best_run_exp_local_stage")
+UNET_NAMES = ("pretrained_depth_completion_pp", "best_run_exp_depth_completion_pp")
+EXPORT_TOOL = "export_torch_assets.py"
+
+
+def global_names(densify: Optional[str] = None, big: bool = False) -> Tuple[str, ...]:
+    """The global stage's candidate names, in the JAX package's order: the
+    ``w`` variant's own stage for densify ``w``, the big path's own stage
+    for the 587x587 path, each falling back to the shared one."""
+    shared = ("pretrained_global_stage", "best_run_exp_global_stage")
+    if densify == "w":
+        return ("pretrained_global_stage_w", "best_run_exp_global_stage_w") + shared
+    if big:
+        return ("pretrained_global_stage_big", "best_run_exp_global_stage_big") + shared
+    return shared
+
+
+def resolve_weights(model_path: str, names) -> Optional[str]:
+    """The first ``<model_path>/<name>.pth`` of ``names`` that exists, or
+    None. A name that exists only as a directory (an Orbax checkpoint of the
+    JAX package, which only JAX reads) raises, naming the export tool."""
+    for name in names:
+        pth = os.path.join(model_path, f"{name}.pth")
+        if os.path.exists(pth):
+            return pth
+        if os.path.isdir(os.path.join(model_path, name)):
+            raise FileNotFoundError(
+                f"{os.path.join(model_path, name)} is an Orbax checkpoint, which only JAX "
+                f"reads; write it as {name}.pth with `python {EXPORT_TOOL} weights` on a "
+                f"machine with JAX and point --model_path at the output")
+    return None
+
+
+def load_inference_modules(args, densify: Optional[str] = None,
+                           allow_random: bool = False, big: bool = False,
+                           device="cuda"):
+    """The models of an evaluation on ``device``, in eval mode, built in
+    ``args.serve_dtype`` (float32 or bfloat16; the weights stay float32):
+    the LocalStage, the GlobalStage (``global_names(densify, big)``) and,
+    for densify ``pp``, the U-Net. Each stage loads the first of its names
+    found as ``<args.model_path>/<name>.pth``; with none found it raises,
+    or with ``allow_random`` takes seeded random weights. Prints what each
+    stage resolved to."""
+    from ..eval.pipeline import InferenceModules
+
+    device = resolve_device(device)
+    dtype = (torch.bfloat16 if getattr(args, "serve_dtype", "float32") == "bfloat16"
+             else torch.float32)
+    stages = [("local", LocalStage, LOCAL_NAMES),
+              ("global", GlobalStage, global_names(densify, big))]
+    if densify == "pp":
+        stages.append(("unet", UNet, UNET_NAMES))
+    g = torch.Generator().manual_seed(0)
+    built = {}
+    for stage, cls, names in stages:
+        model = cls(dtype=dtype)
+        path = resolve_weights(args.model_path, names)
+        if path is not None:
+            model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+            print(f"weights: {stage} stage <- {path}", flush=True)
+        elif allow_random:
+            _randomize(model, g)
+            print(f"weights: {stage} stage <- seeded random weights (none of {names} "
+                  f"under {args.model_path})", flush=True)
+        else:
+            raise FileNotFoundError(f"no weights for any of {names} under {args.model_path}")
+        built[stage] = model.to(device).eval()
+    return InferenceModules(local_model=built["local"], global_model=built["global"],
+                            unet_model=built.get("unet"))

@@ -10,27 +10,33 @@ registers, shared memory and spills of the three tensor-core flash kernels
 and of both wedge kernels, fails if a flash kernel's SASS holds no
 tensor-core instruction, holds each kernel against its plain PyTorch
 version at the shapes of the path that runs it and on degenerate or ragged
-inputs, and drives both slices of the port with seeded random full-width
-weights: it serves a few 147x147 pairs through the estimators (densify
-none, w and pp, the last through the depth-completion U-Net), and trains
-the global stage at full width (147x147, 4,096 tokens, 8 layers, batch 8)
-for three epochs on a seeded synthetic dataset in a temporary directory,
-then resumes it. It checks the outputs (shapes,
-finite values, the launch counts of each path, flash against matmul
-attention, the card against the CPU at a small size), times the kernels
-(the wedge kernels also with the L2 cache flushed before each launch, as
-the serving path finds their inputs after the local CNN), the serving
-paths and the training step, and prints as its last line
+inputs (the wedge kernels also at the 587x587 path's chunk shapes), and
+drives the port with seeded random full-width weights: it serves a few
+147x147 pairs through the estimators (densify none, w and pp, the last
+through the depth-completion U-Net), in float32 and with the networks in
+bfloat16; runs the 587x587 block-tiled estimator; runs the evaluation loops
+(``run_eval`` in each densify mode, ``run_eval_big``) over a seeded test set
+in a temporary directory, one pair's prediction blanked so the exclusion of
+empty images runs; and trains the global stage at full width (147x147,
+4,096 tokens, 8 layers, batch 8) for three epochs on a seeded synthetic
+dataset, then resumes it. It checks the outputs (shapes, finite values,
+the launch counts of each path, the bfloat16 estimator against the
+float32 chain on its networks' outputs, flash against matmul attention,
+the card against the CPU at small sizes), times the kernels (the wedge
+kernels also with the L2 cache flushed before each launch, as the serving
+path finds their inputs after the local CNN), the serving paths, the
+587x587 estimator and the training step, and prints as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Without a CUDA device it exits non-zero at once.
 
 TF32 is off for matmuls and convolutions, so the card computes in float32
-as the CPU reference does.
+as the CPU reference does (bfloat16 where the networks are built so).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import io
 import json
@@ -49,9 +55,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from blurry_edges_tpu_torch.config import (  # noqa: E402
-    CamConfig, GridConfig, PatchConfig, get_args)
+    BLOCK_CHUNK, CamConfig, GridConfig, PatchConfig, get_args)
+from blurry_edges_tpu_torch.eval import pipeline as pipe  # noqa: E402
+from blurry_edges_tpu_torch.eval import pipeline_big as pipe_big  # noqa: E402
 from blurry_edges_tpu_torch.eval.pipeline import (  # noqa: E402
     fold_outputs, make_batched_depth_estimator, make_depth_estimator)
+from blurry_edges_tpu_torch.models.layers import set_compute_dtype  # noqa: E402
 from blurry_edges_tpu_torch.models.global_stage import GlobalStage  # noqa: E402
 from blurry_edges_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from blurry_edges_tpu_torch.ops import wedge_cuda  # noqa: E402
@@ -71,6 +80,12 @@ SEED = 0
 N_PAIRS = 4
 DENSIFY = (None, "w", "pp")        # the serving paths, single pair and batched
 RHO_PRIME = 10.39
+# the 587x587 path: 36 blocks of 147x147, margins of 10 patches; the
+# kernels' shapes a chunk of c blocks gives (colors P = c x 8,192, render
+# B = c) for the default chunk and for all 36 blocks at once
+BIG, N_MARGIN, N_BLOCKS = 587, 10, 36
+BIG_CHUNKS = tuple(dict.fromkeys((BLOCK_CHUNK, N_BLOCKS)))
+OTHER_CHUNK = 1 if BLOCK_CHUNK != 1 else 2   # the second chunk the 587x587 pair is timed at
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -300,6 +315,108 @@ def make_pairs(rng, n, H):
         pair = np.stack([base, base[::-1]]) + rng.normal(0, 0.05, (2, H, H, 3))
         pairs.append(np.clip(pair, 0, 1).astype(np.float32))
     return pairs
+
+
+def big_kernel_inputs(four, c, dev):
+    """Both wedge kernels' inputs at a chunk of c blocks of the 587x587
+    path (colors P = c x 8,192, render B = c): the x4 serving path's
+    inputs, tiled, the colors' params moved by a seeded N(0, 0.01) so that
+    no two tiles are the same."""
+    reps = -(-c // N_PAIRS)
+    P = c * four["params"].shape[0] // N_PAIRS
+    g = torch.Generator(device=dev).manual_seed(SEED + 20 + c)
+    params = four["params"].repeat(reps, 1)[:P]
+    params = (params + 0.01 * torch.randn(params.shape, generator=g, device=dev)).contiguous()
+    flat = four["flat"].repeat(reps, 1, 1, 1)[:P].contiguous()
+    xy = four["xy"].repeat(reps, 1, 1, 1)[:c].contiguous()
+    etas = four["etas"].repeat(reps, 1, 1, 1)[:c].contiguous()
+    imgs = four["img_patches"].repeat(reps, 1, 1, 1, 1, 1, 1)[:c].contiguous()
+    return params, flat, xy, etas, imgs
+
+
+def compare_big(params, flat, xy, etas, imgs, patch_cfg, dfd):
+    """Both kernels launched once at a big chunk's shape, held against their
+    plain versions on the same inputs, computed 4 blocks at a time (each
+    patch's result depends on that patch alone) and compared a slice at a
+    time with compare_colors' and compare_render's tolerances."""
+    colors = wedge_cuda.wedge_colors(params, flat, patch_cfg)
+    step = 4 * params.shape[0] // xy.shape[0]
+    e_colors = max(compare_colors(colors[i:i + step], wedge_cuda.wedge_colors_plain(
+        params[i:i + step], flat[i:i + step], patch_cfg)) for i in range(0, len(params), step))
+    del colors
+    rend = wedge_cuda.wedge_render(xy, etas, imgs, patch_cfg, dfd, RHO_PRIME, False)
+    e_render = 0.0
+    for b in range(0, xy.shape[0], 4):
+        got = {k: v[b:b + 4] for k, v in rend.items()}
+        want = wedge_cuda.wedge_render_plain(xy[b:b + 4], etas[b:b + 4], imgs[b:b + 4],
+                                             patch_cfg, dfd, RHO_PRIME, False)
+        e_render = max(e_render, compare_render(got, want))
+    return e_colors, e_render
+
+
+@contextlib.contextmanager
+def blanking(module, name: str, call: int):
+    """``module.<name>`` (an estimator factory) wrapped so that the estimator
+    it builds returns an all-zero depth_final at its ``call``-th call (0 is
+    the eval loop's warm-up), as tests/test_eval_empty_guard.py blanks one."""
+    make = getattr(module, name)
+
+    def wrapped(*a, **k):
+        est, n = make(*a, **k), [0]
+
+        def estimate(img):
+            out = est(img)
+            if n[0] == call:
+                out["depth_final"] = torch.zeros_like(out["depth_final"])
+            n[0] += 1
+            return out
+        return estimate
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, make)
+
+
+def write_test_set(path: Path, pairs, seed: int):
+    """A test set in the generator's layout from alpha-normalized pairs:
+    integer photon counts at alpha 180-200, depth maps of two planes."""
+    rng = np.random.default_rng(seed)
+    n, H = len(pairs), pairs[0].shape[1]
+    alphas = rng.uniform(180, 200, n).astype(np.float32)
+    yy = np.mgrid[0:H, 0:H][0].astype(np.float32) / H
+    path.mkdir(parents=True)
+    np.save(path / "images_ny.npy", np.stack([np.round(p * a) for p, a in zip(pairs, alphas)])
+            .astype(np.uint8))
+    np.save(path / "depth_maps.npy", np.stack([np.where(yy < rng.uniform(0.3, 0.7), 0.8, 1.1)
+                                               for _ in pairs]).astype(np.float32))
+    np.save(path / "alphas.npy", alphas)
+
+
+def run_loop(fn, *args, **kw):
+    """fn(*args, **kw) with its standard output captured: (result, log)."""
+    log = io.StringIO()
+    with redirect_stdout(log):
+        res = fn(*args, **kw)
+    return res, log.getvalue()
+
+
+def check_eval_log(what, res, log, n, blank):
+    """An eval loop's dict and prints: every pair but ``blank`` scored (or
+    excluded for an empty prediction of its own), ``blank`` excluded and
+    reported, finite averages over the scored ones."""
+    check(set(res) == {"delta1", "delta2", "delta3", "rmse", "absrel", "avg_time",
+                       "pairs_per_sec"}, f"{what}: keys {sorted(res)}")
+    check(f"Image pair #{blank}: no predicted pixels above threshold; excluded" in log,
+          f"{what}: the blanked pair was not excluded")
+    scored = [j for j in range(n) if re.search(rf"Image pair #{j}: delta1 =", log)]
+    check(blank not in scored and len(scored) >= 1, f"{what}: scored pairs {scored}")
+    check(f"{n - len(scored)}/{n} images had empty predictions" in log
+          and f"(over {len(scored)}/{n} scored images)" in log, f"{what}: exclusion report")
+    check(all(math.isfinite(res[k]) for k in res) and res["pairs_per_sec"] > 0,
+          f"{what}: averages {res}")
+    return scored
 
 
 # --------------------------------------------------------------- flash
@@ -627,6 +744,24 @@ def main() -> int:
                 print(f"kernel wedge_render vs plain [{case}, hard={hard}, "
                       f"B={x_.shape[0]}, P={x_.shape[0] * x_.shape[1] * x_.shape[2]}]: "
                       f"max|diff| {e:.3g} ok")
+        # the 587x587 path's chunk shapes: a chunk of c blocks is one colors
+        # launch over c x 8,192 patches and one render launch over c blocks
+        big_ms = {}
+        for c in BIG_CHUNKS:
+            big_in = big_kernel_inputs(four, c, dev)
+            e_c, e_r = compare_big(*big_in, patch_cfg, dfd)
+            errs["wedge_colors"] = max(errs["wedge_colors"], e_c)
+            errs["wedge_render"] = max(errs["wedge_render"], e_r)
+            p_, f_, x_, e_, i_ = big_in
+            big_ms["wedge_colors", c] = cuda_ms(
+                lambda: wedge_cuda.wedge_colors(p_, f_, patch_cfg), 10)
+            big_ms["wedge_render", c] = cuda_ms(
+                lambda: wedge_cuda.wedge_render(x_, e_, i_, patch_cfg, dfd, RHO_PRIME, False), 10)
+            print(f"kernels at the 587x587 path's chunk of {c} blocks (colors P={p_.shape[0]}, "
+                  f"render B={c}, soft masks) vs plain, 4 blocks at a time: max|diff| colors "
+                  f"{e_c:.3g}, render {e_r:.3g} ok")
+            del big_in, p_, f_, x_, e_, i_
+            torch.cuda.empty_cache()
         del four
         torch.cuda.synchronize()
 
@@ -670,7 +805,6 @@ def main() -> int:
         n = N_PAIRS if path.startswith("single") else 1
         check(got == {"wedge_colors": n, "wedge_render": n},
               f"{path} launches {got}, want {n} of each")
-    launches = {k: sum(c[k] for c in launches_by_path.values()) for k in wedge_cuda.launch_counts()}
     for d, res in outs.items():
         for out in res:
             for k, shp in shapes.items():
@@ -760,6 +894,108 @@ def main() -> int:
             check(q90 < 5e-3 and dd.max().item() < 0.25 * scale,
                   f"card vs CPU pp depth_final: p90 {q90}, max {dd.max().item()}")
     print(f"reference: card vs CPU port at 41x41 (densify {', '.join(map(str, DENSIFY))}) ok")
+
+    # 4b. the block-tiled estimator at a small geometry (49x49 blocks over
+    # 71x71, margins of 2 patches: 2x2 blocks), card against CPU, with the
+    # 41x41 serving check's tolerances
+    blk, bigs = GridConfig(H=49, W=49), GridConfig(H=71, W=71)
+    small_big = make_pairs(np.random.default_rng(SEED + 4), 1, bigs.H)[0]
+    got = pipe_big.make_big_depth_estimator(mods, patch_cfg, blk, bigs, cam, 2, block_chunk=3,
+                                            device=dev)(small_big)
+    want = pipe_big.make_big_depth_estimator(mods_cpu, patch_cfg, blk, bigs, cam, 2,
+                                             block_chunk=3, device="cpu")(small_big)
+    for k in ("global_image", "global_shpd", "global_bndry"):
+        check(torch.allclose(got[k].cpu(), want[k], rtol=5e-3, atol=5e-3), f"big card vs CPU {k}")
+    for k in ("global_depth", "confidence", "depth_final"):
+        dd = (got[k].cpu() - want[k]).abs().flatten()
+        q99 = dd.kthvalue(int(np.ceil(0.99 * dd.numel()))).values.item()
+        check(q99 < 5e-3, f"big card vs CPU {k}: p99 {q99}")
+    print("reference: the block-tiled estimator, card vs CPU port at 49x49 blocks over 71x71 ok")
+
+    # 4c. bfloat16 networks (the float32 weights; the analytic chain float32)
+    mods16 = copy.deepcopy(mods)
+    for m in (mods16.local_model, mods16.global_model, mods16.unet_model):
+        set_compute_dtype(m, torch.bfloat16)
+    single16 = {d: make_depth_estimator(mods16, patch_cfg, grid, cam, densify=d,
+                                        rho_prime=RHO_PRIME, device=dev) for d in DENSIFY}
+    batched16 = {d: make_batched_depth_estimator(mods16, patch_cfg, grid, cam, densify=d,
+                                                 rho_prime=RHO_PRIME, device=dev)
+                 for d in DENSIFY}
+    for d in DENSIFY:
+        wedge_cuda.reset_launch_counts()
+        res16 = [single16[d](p) for p in pairs]
+        torch.cuda.synchronize()
+        launches_by_path[f"bf16_single_{d}"] = wedge_cuda.launch_counts()
+        wedge_cuda.reset_launch_counts()
+        res16_b = batched16[d](np.stack(pairs))
+        torch.cuda.synchronize()
+        launches_by_path[f"bf16_batched_{d}"] = wedge_cuda.launch_counts()
+        check(launches_by_path[f"bf16_single_{d}"] == {"wedge_colors": N_PAIRS,
+                                                       "wedge_render": N_PAIRS}
+              and launches_by_path[f"bf16_batched_{d}"] == {"wedge_colors": 1, "wedge_render": 1},
+              f"bf16 {d} launches")
+        for out in res16 + [{k: v[0] for k, v in res16_b.items()}]:
+            for k, shp in shapes.items():
+                check(tuple(out[k].shape) == (1,) + shp and out[k].dtype == torch.float32,
+                      f"bf16 {d} {k} shape/dtype")
+                check(torch.isfinite(out[k]).all().item(), f"bf16 {d} {k} not finite")
+    # the NN boundary: the bfloat16 estimator equals, bit for bit, the
+    # float32 chain run on its networks' outputs cast to float32
+    with torch.inference_mode():
+        img = torch.from_numpy(pairs[0]).to(dev)
+        patches = unfold(img, R, grid.stride)
+        flat16 = patches.reshape(2 * L, R, R, 3)
+        p16 = wrap_local_params(mods16.local_model(flat16).float())
+        tok = normalize_token_features(p16, wedge_cuda.wedge_colors(p16, flat16, patch_cfg))
+        src16 = tok.reshape(2, L, 19).permute(1, 0, 2).reshape(1, L, 38)
+        den = denormalize_global_eval(mods16.global_model(src16).float()).reshape(1, Hp, Hp, 12)
+        chain = fold_outputs(wedge_cuda.wedge_render(
+            den[..., :8].contiguous(), params2etas(den[..., 8:]).contiguous(), patches[None],
+            patch_cfg, dfd, RHO_PRIME, False), grid)
+        chain["depth_final"] = torch.where(chain["confidence"] > 0.05, chain["global_depth"], 0.0)
+    est16 = single16[None](pairs[0])
+    for k in chain:
+        check(torch.equal(est16[k], chain[k]), f"bf16 NN boundary: {k} differs from the "
+              "float32 chain on the bf16 networks' outputs")
+    print(f"serving bf16: single-pair and batched x{N_PAIRS} paths (densify "
+          f"{', '.join(map(str, DENSIFY))}) ran, launches {N_PAIRS} and 1 of each kernel, maps "
+          "float32 and finite; the estimator equals the float32 chain on its bf16 networks' "
+          "outputs bit for bit ok")
+
+    # 4d. the evaluation loops over a seeded test set: run_eval in each
+    # densify mode (3 pairs) and run_eval_big (2 pairs), the estimator
+    # wrapped to blank pair 1 (its call 2: call 0 is the warm-up)
+    eval_logs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        write_test_set(root / "t147", make_pairs(np.random.default_rng(SEED + 5), 3, grid.H),
+                       SEED + 6)
+        write_test_set(root / "t587", make_pairs(np.random.default_rng(SEED + 7), 2, BIG),
+                       SEED + 8)
+        args = get_args("eval", argv=["--data_path", str(root / "t147")])
+        for d in DENSIFY:
+            args.densify = d
+            wedge_cuda.reset_launch_counts()
+            with blanking(pipe, "make_depth_estimator", 2):
+                res, log = run_loop(pipe.run_eval, args, mods, device=dev)
+            launches_by_path[f"run_eval_{d}"] = wedge_cuda.launch_counts()
+            check(launches_by_path[f"run_eval_{d}"] == {"wedge_colors": 4, "wedge_render": 4},
+                  f"run_eval {d} launches {launches_by_path[f'run_eval_{d}']}")
+            eval_logs[f"run_eval_{d}"] = (check_eval_log(f"run_eval {d}", res, log, 3, 1), res)
+        args = get_args("eval", big=True, argv=["--data_path", str(root / "t587")])
+        wedge_cuda.reset_launch_counts()
+        with blanking(pipe_big, "make_big_depth_estimator", 2):
+            res, log = run_loop(pipe_big.run_eval_big, args, mods, device=dev)
+        launches_by_path["run_eval_big"] = wedge_cuda.launch_counts()
+        per_call = -(-N_BLOCKS // args.block_chunk)
+        check(launches_by_path["run_eval_big"] == {"wedge_colors": 3 * per_call,
+                                                   "wedge_render": 3 * per_call},
+              f"run_eval_big launches {launches_by_path['run_eval_big']}")
+        eval_logs["run_eval_big"] = (check_eval_log("run_eval_big", res, log, 2, 1), res)
+    print("eval: " + "; ".join(
+        f"{k} scored pairs {v[0]} (pair 1 blanked and excluded), "
+        f"{v[1]['pairs_per_sec']:.3f} pairs/s" for k, v in eval_logs.items())
+        + f"; launches {N_BLOCKS}/{BLOCK_CHUNK} a 587x587 call ok")
 
     # 5. training, the main path of the second slice: 3 epochs at full width
     # (147x147, 4,096 tokens, 8 layers, batch 8 in 4 chunks of 2), flash
@@ -877,6 +1113,9 @@ def main() -> int:
                          f"{n * bound:.4f}), cold {cold:.4f} ms ({n * bound / cold:.1%})")
         print(f"time {name}: " + "; ".join(cases) + f"; plain {p_ms[name]:.4f} ms (single "
               f"pair) [{card}]")
+        print(f"time {name} at the 587x587 path's chunks (warm): " + "; ".join(
+            f"{c} blocks {big_ms[name, c]:.4f} ms ({c * bound / big_ms[name, c]:.1%} of its "
+            f"bound {c * bound:.4f})" for c in BIG_CHUNKS) + f" [{card}]")
     print(f"time stages of one pair (ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" [{card}]")
     with torch.inference_mode():
@@ -919,6 +1158,59 @@ def main() -> int:
               f"sum), batched x{N_PAIRS} {batched_rate:.3f} pairs/s (peak {batched_peak:.2f} "
               f"GiB) [{card}]")
 
+    # the same with the three networks in bfloat16
+    with torch.inference_mode():
+        stage16 = {"local_cnn": cuda_ms(lambda: mods16.local_model(flat), 5),
+                   "global_stage": cuda_ms(lambda: mods16.global_model(one["src"]), 5),
+                   "unet": cuda_ms(lambda: mods16.unet_model(depth_in), 10)}
+    print("time stages of one pair, networks in bfloat16 (ms): " + ", ".join(
+        f"{k} {v:.3f} (float32 {stage_ms[k]:.3f}, {f_ / v / 1e9:.1f} TFLOP/s)"
+        for (k, v), f_ in zip(stage16.items(), (flops[k] for k in stage16))) + f" [{card}]")
+    for d in DENSIFY:
+        single_rate, single_peak = rate_and_peak(single16[d], pairs[0], 1, 20)
+        batched_rate, batched_peak = rate_and_peak(batched16[d], stacked, N_PAIRS, 5)
+        print(f"time serving bf16 (densify {d}): single pair {single_rate:.3f} pairs/s (peak "
+              f"{single_peak:.2f} GiB), batched x{N_PAIRS} {batched_rate:.3f} pairs/s (peak "
+              f"{batched_peak:.2f} GiB) [{card}]")
+
+    # one 587x587 pair at full width, at the default chunk and one other
+    pair587 = make_pairs(np.random.default_rng(SEED + 9), 1, BIG)[0]
+    big_grid = GridConfig(H=BIG, W=BIG)
+    big_out = {}
+    for c in (BLOCK_CHUNK, OTHER_CHUNK):
+        est = pipe_big.make_big_depth_estimator(mods, patch_cfg, grid, big_grid, cam, N_MARGIN,
+                                                rho_prime=RHO_PRIME, block_chunk=c, device=dev)
+        est(pair587)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wedge_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        big_out[c] = est(pair587)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches_by_path[f"big_587_chunk{c}"] = wedge_cuda.launch_counts()
+        want_n = -(-N_BLOCKS // c)
+        check(launches_by_path[f"big_587_chunk{c}"] == {"wedge_colors": want_n,
+                                                        "wedge_render": want_n},
+              f"587x587 chunk {c}: launches {launches_by_path[f'big_587_chunk{c}']}")
+        for k, shp in dict(global_image=(2, BIG, BIG, 3), confidence=(BIG, BIG),
+                           depth_final=(BIG, BIG)).items():
+            check(tuple(big_out[c][k].shape) == (1,) + shp
+                  and torch.isfinite(big_out[c][k]).all().item(), f"587x587 {k}")
+        check((big_out[c]["depth_final"] > 0).any().item(), "587x587: no depth predicted")
+        print(f"time 587x587 pair, float32, block_chunk {c}: {secs:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+              f"{launches_by_path[f'big_587_chunk{c}']} [{card}]")
+        del est
+    for k in big_out[BLOCK_CHUNK]:
+        dd = (big_out[BLOCK_CHUNK][k] - big_out[OTHER_CHUNK][k]).abs().flatten()
+        check(dd.kthvalue(int(0.8 * dd.numel())).values.item() < 1e-3
+              and (dd > 0.01).float().mean().item() < 0.05, f"587x587 chunk {BLOCK_CHUNK} vs "
+              f"{OTHER_CHUNK}: {k}")
+    del big_out
+    torch.cuda.empty_cache()
+    print(f"587x587: the two chunks' maps agree (bulk and flip share as batched vs single) ok")
+
     # the flash kernels at a training chunk's shape, and the training step
     f_ms, f_plain, f_lib = time_flash(dev)
     f_bound = flash_bounds(FLASH_SHAPE)
@@ -951,6 +1243,8 @@ def main() -> int:
         + f" [{card}]")
     print(profile_step(batch, gammas, grid, patch_cfg, dfd, dev) + f" [{card}]")
 
+    # every path's launches, each path's counted from 0 just before it
+    launches = {k: sum(c[k] for c in launches_by_path.values()) for k in wedge_cuda.launch_counts()}
     kernels = []
     for name, src, tpu in (
             ("wedge_colors", "blurry_edges_tpu_torch/csrc/wedge_colors.cu",
@@ -964,8 +1258,10 @@ def main() -> int:
             launches=launches[name],
             launches_by_path={path: c[name] for path, c in launches_by_path.items()},
             max_abs_err=errs[name], ms=k_ms[name],
-            ms_by_case={f"{case}_{temp}": w_ms[name, case, temp]
-                        for case in ("single", f"x{N_PAIRS}") for temp in ("warm", "cold")},
+            ms_by_case={**{f"{case}_{temp}": w_ms[name, case, temp]
+                           for case in ("single", f"x{N_PAIRS}") for temp in ("warm", "cold")},
+                        **{f"big_chunk{c}_warm": big_ms[name, c] for c in BIG_CHUNKS}},
+            bound_ms_by_case={f"big_chunk{c}": c * max(t_bytes, t_ops) for c in BIG_CHUNKS},
             plain_ms=p_ms[name], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None))

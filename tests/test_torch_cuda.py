@@ -298,3 +298,90 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(dev):
         fa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q, 0.25)
     with pytest.raises(ValueError, match="shape"):
         fa.flash_attention_fwd(q, q[:, :, :32].contiguous(), q, 0.25)
+
+
+def test_kernels_at_the_big_paths_chunk_shapes(dev):
+    """A chunk of 6 blocks of the 587x587 path: colors over 6 x 8,192
+    patches and the render over B = 6 blocks of 64x64 patches with soft
+    masks, each launched once, against the plain versions (run on the card
+    one block at a time)."""
+    g = torch.Generator().manual_seed(21)
+    c = 6
+    xy, etas, imgs = (t.to(dev) for t in render_inputs(g, c, 64, 64))
+    params = (torch.randn((c * 8192, 10), generator=g) * 1.5).to(dev)
+    pixels = imgs.permute(0, 2, 3, 1, 4, 5, 6).reshape(c * 8192, R, R, 3).contiguous()
+    colors = wedge_cuda.wedge_colors(params, pixels, PATCH)
+    rend = wedge_cuda.wedge_render(xy, etas, imgs, PATCH, DFD, 10.39, False)
+    for i in range(0, c * 8192, 8192):
+        s = slice(i, i + 8192)
+        torch.testing.assert_close(colors[s], wedge_cuda.wedge_colors_plain(
+            params[s], pixels[s], PATCH), rtol=2e-3, atol=2e-4)
+    for b in range(c):
+        want = wedge_cuda.wedge_render_plain(xy[b:b + 1], etas[b:b + 1], imgs[b:b + 1],
+                                             PATCH, DFD, 10.39, False)
+        assert_render_close({k: v[b:b + 1] for k, v in rend.items()}, want)
+
+
+def test_kernels_repeat_bit_for_bit_at_36_blocks(dev):
+    """All 36 blocks in one chunk: colors over P = 36 x 8,192 and the render
+    over B = 36, launched twice, the same bits."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    P = 36 * 8192
+    params = torch.randn((P, 10), generator=g, device=dev) * 1.5
+    pixels = torch.rand((P, R, R, 3), generator=g, device=dev)
+    first = wedge_cuda.wedge_colors(params, pixels, PATCH)
+    again = wedge_cuda.wedge_colors(params, pixels, PATCH)
+    assert torch.equal(first, again)
+    del first, again
+    xy = torch.cat([torch.rand((36, 64, 64, 4), generator=g, device=dev) * 1.6 - 0.8,
+                    torch.rand((36, 64, 64, 4), generator=g, device=dev) * 2 * np.pi], -1)
+    etas = params2etas(torch.randn((36, 64, 64, 4), generator=g, device=dev))
+    imgs = pixels.view(36, 2, 64, 64, R, R, 3)   # 36 x 2 x 4,096 = P patches
+    first = wedge_cuda.wedge_render(xy, etas, imgs, PATCH, DFD, 10.39, False)
+    again = wedge_cuda.wedge_render(xy, etas, imgs, PATCH, DFD, 10.39, False)
+    torch.cuda.synchronize()
+    for k in first:
+        assert torch.equal(first[k], again[k]), k
+
+
+def test_bf16_estimator_on_the_card_matches_the_cpu(dev):
+    """Networks in bfloat16 at 41x41: each network's bfloat16 output on the
+    card is no further from the float32 output than 1.25 times the CPU's
+    bfloat16 output is (p99 and max), and within twice that of the CPU's
+    bfloat16 output. cuDNN and oneDNN sum each product in another order, so
+    single bfloat16 roundings fall apart and spread: the card and the CPU
+    differ by bfloat16 roundings as bfloat16 and float32 do (on an H100 the
+    global stage's p99 is 0.0137 card vs CPU against 0.0133 bfloat16 vs
+    float32), so the card's own bfloat16 error is what is bounded. The estimator's maps are float32, finite, from one launch of
+    each kernel."""
+    from blurry_edges_tpu_torch.ops.patchify import unfold
+
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    cpu32 = random_modules(gen(), "cpu", unet=True)
+    cpu16 = random_modules(gen(), "cpu", unet=True, dtype=torch.bfloat16)
+    card16 = random_modules(gen(), dev, unet=True, dtype=torch.bfloat16)
+    img = torch.rand((2, 41, 41, 3), generator=torch.Generator().manual_seed(7))
+    flat = unfold(img, R, 2).reshape(-1, R, R, 3)
+    src = torch.randn((1, 121, 38), generator=torch.Generator().manual_seed(8))
+    depth = torch.rand((1, 1, 41, 41), generator=torch.Generator().manual_seed(9)) + 0.5
+    with torch.inference_mode():
+        for name, x in (("local_model", flat), ("global_model", src), ("unet_model", depth)):
+            want16 = getattr(cpu16, name)(x).float()
+            want32 = getattr(cpu32, name)(x)
+            got = getattr(card16, name)(x.to(dev)).float().cpu()
+            ref = (want16 - want32).abs().flatten()
+            d = (got - want16).abs().flatten()
+            own = (got - want32).abs().flatten()
+            for q, (e_card, e_cpu, e_pair) in (
+                    ("p99", (torch.quantile(t, 0.99).item() for t in (own, ref, d))),
+                    ("max", (t.max().item() for t in (own, ref, d)))):
+                print(name, q, "card bf16 - f32", e_card, "cpu bf16 - f32", e_cpu,
+                      "card - cpu bf16", e_pair)
+                assert e_card <= 1.25 * e_cpu and e_pair <= 2 * e_cpu, (name, q)
+    wedge_cuda.reset_launch_counts()
+    out = make_depth_estimator(card16, PATCH, GridConfig(H=41, W=41), CamConfig(),
+                               device=dev)(img)
+    torch.cuda.synchronize()
+    assert wedge_cuda.launch_counts() == {"wedge_colors": 1, "wedge_render": 1}
+    for k, v in out.items():
+        assert v.dtype == torch.float32 and torch.isfinite(v).all(), k

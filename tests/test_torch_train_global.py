@@ -510,4 +510,4 @@ def test_cli_entry_and_device_default(tmp_path, dataset):
     assert (tmp_path / "w" / "done_global_w").exists()
     assert isinstance(get_args("global_train", argv=[]), argparse.Namespace)
     with pytest.raises(ValueError, match="not ported"):
-        get_args("eval", argv=[])
+        get_args("local_train", argv=[])
