@@ -70,14 +70,19 @@ class GridConfig:
 BLOCK_CHUNK = 4
 
 
+MODES = ("data_gen_train_val", "local_train", "global_pre", "global_train",
+         "data_gen_test", "eval")
+
+
 def get_args(mode: str, big: bool = False, argv: Optional[list] = None) -> argparse.Namespace:
     """The argument set of one entry mode, flag for flag with the JAX
-    package's ``get_args``. Ported modes: ``global_train`` and ``eval``
-    (``big`` for the 587x587 path). ``--cuda`` names the device the run uses;
+    package's ``get_args``: ``data_gen_train_val``, ``local_train``,
+    ``global_pre``, ``global_train``, ``data_gen_test`` and ``eval`` (``big``
+    for the 587x587 path). ``--cuda`` names the device the run uses;
     ``--block_chunk`` defaults to ``BLOCK_CHUNK``. Pass ``argv=[]`` for the
     defaults."""
-    if mode not in ("global_train", "eval"):
-        raise ValueError(f"mode {mode!r} is not ported; ported: 'global_train', 'eval'")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; modes: {', '.join(MODES)}")
     parser = argparse.ArgumentParser()
     add = parser.add_argument
     add('--cuda', type=str, default='cuda:0', help='device of the run')
@@ -92,6 +97,45 @@ def get_args(mode: str, big: bool = False, argv: Optional[list] = None) -> argpa
                  'sigma_cam': 0.003, 'pixel_pitch': 5.86e-6},
         help='camera parameters')
     add('--mag', type=float, default=4, help='magnification factor')
+
+    if mode == 'data_gen_train_val':
+        add('--data_path', type=str, default='./data/data_train_val', help='path of dataset')
+        add('--num_sample_train', type=int, default=8000, help='number of samples to generate in training set')
+        add('--num_sample_val', type=int, default=2000, help='number of samples to generate in validation set')
+        add('--num_shape', type=int, nargs=2, default=[15, 26], help='number of shapes to generate in each image')
+        add('--Z_range', type=float, nargs=2, default=[0.75, 1.18], help='distance between the object and the camera (m)')
+        add('--alpha', type=float, nargs=2, default=[180.0, 200.0], help='maximum average number of photons')
+        add('--sigma', type=float, default=2, help='read noise coefficient')
+        return parser.parse_args(argv)
+
+    if mode == 'local_train':
+        add('--data_path', type=str, default='./data/data_train_val/patches', help='path of dataset')
+        add('--log_path', type=str, default='./logs', help='path of logs')
+        add('--epoch_num', type=int, default=1000, help='number of epochs')
+        add('--learning_rate', type=float, default=6e-5, help='initial learning rate for late training')
+        add('--batch_size', type=int, default=64, help='batch size')
+        add('--beta_bndry_loc', type=float, default=0.001, help='weight for boundary localization error')
+        add('--beta_smthns', type=float, default=0.0005, help='weight for smoothness error')
+        add('--dynamic_epoch', type=int, default=200, help='key epoch of dynamic scheduling')
+        add('--dp_devices', type=int, default=0,
+            help='data-parallel devices (0/1 = one device; more is not ported)')
+        return parser.parse_args(argv)
+
+    if mode == 'global_pre':
+        add('--stride', type=int, default=2, help='stride')
+        add('--data_path', type=str, default='./data/data_train_val', help='path of dataset')
+        add('--batch_size', type=int, default=1, help='batch size')
+        return parser.parse_args(argv)
+
+    if mode == 'data_gen_test':
+        add('--data_path', type=str, default='./data/data_test', help='path of dataset')
+        add('--frgd_path', type=str, default='./data/MS_COCO_annotations/', help='path of MS COCO dataset')
+        add('--bkgd_path', type=str, default='./data/Painting/', help='path of painting dataset')
+        add('--num_sample_test', type=int, default=200, help='number of samples to generate in testing set')
+        add('--Z_range', type=float, nargs=2, default=[0.75, 1.18], help='distance between the object and the camera (m)')
+        add('--alpha', type=int, nargs=2, default=[180, 200], help='maximum average number of photons')
+        add('--sigma', type=float, default=2, help='read noise coefficient')
+        return parser.parse_args(argv)
 
     if mode == 'eval':
         add('--stride', type=int, default=2, help='stride')

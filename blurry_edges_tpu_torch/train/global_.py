@@ -330,7 +330,8 @@ def load_global_compact(data_path: str, train: bool, subset: int = 0,
                         include_ny: bool = False) -> Dict[str, np.ndarray]:
     """The compact arrays of a split, read through mmap: only what the
     compact form needs (the derivative maps are recomputed from the uint8
-    images), converted to uint8 in chunks of 1,000 samples."""
+    images), converted to uint8 in chunks of 1,000 samples; the float32
+    tokens are left memory-mapped (a view, no copy)."""
     part = "train" if train else "val"
 
     def mm(name):
@@ -352,6 +353,7 @@ def load_global_compact(data_path: str, train: bool, subset: int = 0,
             out[s:e] = np.round(chunk).astype(np.uint8)
         return out
 
+    # the tokens stay memory-mapped: to_device_batch reads them in chunks
     out = {"input_param": np.asarray(mm("params_src")[:n], dtype=np.float32),
            "imgs_u8": to_u8("images_gt", scale_by_alpha=True),
            "bndry_dist": np.asarray(mm("boundary_distances")[:n]).astype(np.uint16),
@@ -362,15 +364,26 @@ def load_global_compact(data_path: str, train: bool, subset: int = 0,
     return out
 
 
+# samples of float32 tokens a host-to-device copy carries before the cast
+TOKEN_CAST_CHUNK = 256
+
+
 def to_device_batch(arrays: Dict[str, np.ndarray], device, bf16_tokens=False):
     """Compact numpy arrays -> tensors on ``device``. uint16 distances go
     to int32 (exact; torch's uint16 support is partial); the tokens rest in
-    bfloat16 when ``bf16_tokens`` (the JAX package's resident train set)."""
+    bfloat16 when ``bf16_tokens`` (the JAX package's resident train set),
+    cast on the device ``TOKEN_CAST_CHUNK`` samples at a time, so the host
+    never holds a second copy of them (5 GB in float32 at 8,000 samples)."""
     out = {}
     for k, v in arrays.items():
-        t = torch.from_numpy(np.array(v, dtype=np.int32 if v.dtype == np.uint16 else v.dtype))
         if k == "input_param" and bf16_tokens:
-            t = t.to(torch.bfloat16)
+            t = torch.empty(v.shape, dtype=torch.bfloat16, device=device)
+            for s in range(0, len(v), TOKEN_CAST_CHUNK):
+                part = np.array(v[s:s + TOKEN_CAST_CHUNK], dtype=np.float32)
+                t[s:s + TOKEN_CAST_CHUNK] = torch.from_numpy(part).to(device).to(torch.bfloat16)
+            out[k] = t
+            continue
+        t = torch.from_numpy(np.array(v, dtype=np.int32 if v.dtype == np.uint16 else v.dtype))
         out[k] = t.to(device)
     return out
 
@@ -406,6 +419,7 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
     ``last_<exp>.pth`` (the snapshot) under ``--model_path``.
     """
     from ..config import cam_from_args, grid_from_args, patch_from_args
+    from ..data.datasets import BatchIterator
     from ..utils.io import TrainLogger, create_directory, show_curve
     from ..utils.seeding import set_seed
     from . import schedules
@@ -513,10 +527,11 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
     for epoch in range(start_epoch, args.epoch_num):
         gammas = gammas_to_array(
             schedules.gamma_schedule(epoch, args.dynamic_epoch, ranges), device)
-        perm = np.random.default_rng(1898 + 7919 * epoch).permutation(n_train)
+        batches = list(BatchIterator(n_train, args.batch_size, shuffle=True,
+                                     seed=1898 + 7919 * epoch))
         first = start_step if epoch == start_epoch else 0
         for b in range(first, nb_train):
-            idx = torch.from_numpy(perm[b * args.batch_size:(b + 1) * args.batch_size]).to(device)
+            idx = torch.from_numpy(batches[b]).to(device)
             batch = {k: v[idx] for k, v in data_train.items()}
             t0 = time.time()
             loss = train_step(batch, gammas, fold_in(fold_in(root_seed, epoch), b))

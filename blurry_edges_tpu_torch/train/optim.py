@@ -13,7 +13,8 @@ Counterparts of the JAX package's ``train/local.py`` (:51-82), which builds
   optimizer's ``param_groups``;
 - ``xavier_reinit``: Xavier normal (truncated at two standard deviations,
   as ``jax.nn.initializers.xavier_normal``) with the fans of the Flax
-  parameter shapes, zero biases, unit LayerNorm scales.
+  parameter shapes, zero biases, unit norm scales (LayerNorm and
+  BatchNorm, whose running statistics are left as they are).
 """
 
 from __future__ import annotations
@@ -73,9 +74,11 @@ def xavier_reinit(model: nn.Module, g: torch.Generator) -> None:
     parameter of rank > 1), with draws from the CPU generator ``g``.
 
     Fans follow the Flax shapes: a Dense kernel (in, out) gives (in, out);
+    a Conv kernel (kh, kw, in, out) gives (kh * kw * in, kh * kw * out);
     each of the q/k/v DenseGeneral kernels (d, heads, hd) gives
     (heads * d, hd * d); the out kernel (heads, hd, d) gives
-    (hd * heads, d * heads).
+    (hd * heads, d * heads). Rank-1 parameters keep Flax's defaults: zero
+    biases, unit LayerNorm and BatchNorm scales.
     """
     out_projs = set()
     for mod in model.modules():
@@ -93,7 +96,12 @@ def xavier_reinit(model: nn.Module, g: torch.Generator) -> None:
             if mod not in out_projs:
                 _xavier_(mod.weight, mod.in_features, mod.out_features, g)
                 mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, nn.Conv2d) and mod.groups == 1:
+            o, i, kh, kw = mod.weight.shape
+            _xavier_(mod.weight, kh * kw * i, kh * kw * o, g)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif any(True for _ in mod.parameters(recurse=False)):

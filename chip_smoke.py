@@ -19,10 +19,19 @@ bfloat16; runs the 587x587 block-tiled estimator; runs the evaluation loops
 in a temporary directory, one pair's prediction blanked so the exclusion of
 empty images runs; and trains the global stage at full width (147x147,
 4,096 tokens, 8 layers, batch 8) for three epochs on a seeded synthetic
-dataset, then resumes it. It checks the outputs (shapes, finite values,
+dataset, then resumes it; and drives the training-data path through the
+command line's modes: generates train/val scenes, trains the local stage
+for two epochs and resumes it for a third, precalculates the global
+stage's tokens with it (the wedge_colors kernel, one launch a device batch
+of 8 pairs), trains the global stage on those tokens, generates 147x147
+and 587x587 test sets and evaluates them with the weights it trained. It
+checks the outputs (shapes, finite values,
 the launch counts of each path, the bfloat16 estimator against the
 float32 chain on its networks' outputs, flash against matmul attention,
-the card against the CPU at small sizes), times the kernels (the wedge
+the card against the CPU at small sizes; the generated arrays' shapes,
+ranges, integer noisy counts, boundary distances, depths and unbiased shot
+noise; the card's precal tokens against the CPU chain), times each stage
+of the training-data path, the kernels (the wedge
 kernels also with the L2 cache flushed before each launch, as the serving
 path finds their inputs after the local CNN), the serving paths, the
 587x587 estimator and the training step, and prints as its last line
@@ -660,6 +669,252 @@ def profile_step(batch, gammas, grid, patch_cfg, dfd, dev) -> str:
             + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top))
 
 
+# --------------------------------------------------------------- training data
+
+# the training-data path: train/val scenes (2 patches a scene, so the local
+# trainer has 2 train batches of 64 and 1 val batch), precal in device
+# batches of 8 pairs (12 wedge_colors launches), test sets of 3 pairs at
+# 147x147 and 2 at 587x587
+N_GEN_TRAIN, N_GEN_VAL, PRECAL_BATCH = 64, 32, 8
+N_GEN_TEST, N_GEN_TEST_BIG = 3, 2
+Z_RANGE, SIGMA_READ = (0.75, 1.18), 2.0
+
+
+def noise_bias(gt, ny, alpha):
+    """Mean of (noisy - clean) photon counts over the pixels clear of both
+    clips (10 < clean < alpha - 30), in standard errors of that mean (each
+    pixel's variance clean + sigma^2 + 1/12: shot noise, read noise,
+    rounding)."""
+    a = alpha.reshape((-1,) + (1,) * (gt.ndim - 1))
+    keep = (gt > 10) & (gt < a - 30)
+    d = (ny - gt)[keep].astype(np.float64)
+    se = math.sqrt((gt[keep].astype(np.float64).mean() + SIGMA_READ ** 2 + 1 / 12) / d.size)
+    return d.mean() / se
+
+
+def check_noisy(what, gt, ny, alpha, shape):
+    """Shapes, float32, integer noisy counts in [0, round(alpha)] (clipped
+    to alpha, then rounded), clean counts in [0, alpha], shot noise without
+    bias (its mean within 4 standard errors of 0)."""
+    a = alpha.reshape((-1,) + (1,) * (gt.ndim - 1))
+    check(gt.shape == ny.shape == shape and gt.dtype == ny.dtype == np.float32,
+          f"{what}: shapes {gt.shape} {ny.shape}, want {shape} float32")
+    check(((alpha >= 180) & (alpha < 200)).all(), f"{what}: alphas outside [180, 200)")
+    check((ny == np.round(ny)).all() and ny.min() >= 0 and (ny <= np.round(a)).all(),
+          f"{what}: noisy counts not integers in [0, round(alpha)]")
+    check(gt.min() >= 0 and (gt <= a + 1e-3).all(), f"{what}: clean counts outside [0, alpha]")
+    z = noise_bias(gt, ny, alpha)
+    check(abs(z) < 4, f"{what}: shot noise biased by {z:.2f} standard errors")
+    return z
+
+
+def check_generated_trainval(data: Path, H: int) -> dict:
+    """The train/val arrays the generator wrote: shapes, ranges, noise, a
+    boundary distance of 0 on every boundary pixel (and only there), depths
+    inside Z_range, the patch set's shapes and distances."""
+    zs = {}
+    for part, n in (("train", N_GEN_TRAIN), ("val", N_GEN_VAL)):
+        ld = lambda name: np.load(data / f"{name}_{part}.npy")           # noqa: E731
+        zs[part] = check_noisy(f"gen_trainval {part}", ld("images_gt"), ld("images_ny"),
+                               ld("alphas"), (n, 2, H, H, 3))
+        bloc, dist = ld("boundary_locations"), ld("boundary_distances")
+        check((bloc > 0).any(axis=(1, 2)).all(), f"gen_trainval {part}: a scene without boundary")
+        check((dist[bloc > 0] == 0).all() and (dist[bloc == 0] > 0).all(),
+              f"gen_trainval {part}: boundary distance not 0 exactly on the boundary")
+        depth, bdep = ld("image_depths"), ld("boundary_depths")
+        check(depth.min() >= Z_RANGE[0] and depth.max() <= Z_RANGE[1]
+              and bdep.min() >= 0 and bdep.max() <= Z_RANGE[1],
+              f"gen_trainval {part}: depths outside Z_range")
+        aif, deri = ld("images_aif"), ld("derivative_maps")
+        check(aif.shape == (n, H, H, 3) and aif.min() >= 0 and aif.max() <= 1
+              and deri.shape == (n, 2, H, H, 3) and np.isfinite(deri).all(),
+              f"gen_trainval {part}: aif / derivative maps")
+        pl = lambda name: np.load(data / "patches" / f"{name}_{part}.npy")   # noqa: E731
+        check(pl("patches_ny").shape == (2 * n, 21, 21, 3)
+              and (pl("boundary_distances")[pl("boundary_locations") > 0] == 0).all(),
+              f"gen_trainval {part}: patch set")
+    return zs
+
+
+def check_generated_test(path: Path, n: int, H: int) -> float:
+    ld = lambda name: np.load(path / f"{name}.npy")                   # noqa: E731
+    z = check_noisy(f"gen_test {path.name}", ld("images_gt"), ld("images_ny"), ld("alphas"),
+                    (n, 2, H, H, 3))
+    depth = ld("depth_maps")
+    check(depth.shape == (n, H, H) and depth.min() >= Z_RANGE[0]
+          and depth.max() <= Z_RANGE[1] + 1e-6, f"gen_test {path.name}: depths")
+    return z
+
+
+class Stages:
+    """Seconds (host clock around work that ends in a synchronize) and peak
+    device memory of each stage of a path."""
+
+    def __init__(self, dev):
+        self.dev, self.rows = dev, {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        torch.cuda.synchronize(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize(self.dev)
+        self.rows[name] = (time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated(self.dev) / 2**30)
+
+    def line(self):
+        return "; ".join(f"{k} {s:.2f} s ({g:.2f} GiB)" for k, (s, g) in self.rows.items())
+
+
+def run_datagen_path(root: Path, dev, grid: GridConfig, patch_cfg: PatchConfig):
+    """The training-data path through the command line's modes on the card:
+    gen_trainval, local_train for 2 epochs and a resumed third, global_precal
+    with that local stage, global_train on those tokens, gen_test (147x147
+    and --big), then run_eval (densify none and w) and run_eval_big with the
+    weights the path trained. Each kernel's launches are counted from 0
+    just before each stage. Returns (launches by stage, stage clock,
+    checks' numbers)."""
+    from blurry_edges_tpu_torch import cli
+    from blurry_edges_tpu_torch.train import local as tl
+    from blurry_edges_tpu_torch.train.global_precal import load_local_stage, make_precal_fn
+    from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+
+    cuda, H = ["--cuda", str(dev)], grid.H
+    data, w = root / "data", root / "w"
+    clock, launches, notes = Stages(dev), {}, {}
+
+    def counted(name):
+        fa.reset_launch_counts()
+        wedge_cuda.reset_launch_counts()
+        return clock(name)
+
+    def read(name):
+        launches[name] = {**wedge_cuda.launch_counts(), **fa.launch_counts()}
+
+    with counted("gen_trainval"), redirect_stdout(io.StringIO()):
+        phases = cli.gen_trainval_main(cuda + ["--data_path", str(data), "--num_sample_train",
+                                               str(N_GEN_TRAIN), "--num_sample_val",
+                                               str(N_GEN_VAL)])
+    read("gen_trainval")
+    notes["gen_phases"] = phases
+    notes["noise_z"] = check_generated_trainval(data, H)
+
+    largs = lambda epochs: get_args("local_train", argv=[                  # noqa: E731
+        "--data_path", str(data / "patches"), "--log_path", str(root / "logs_local"),
+        "--model_path", str(w), "--epoch_num", str(epochs)])
+    with counted("local_train"):
+        first, _ = run_loop(tl.run_local_training, largs(2), snapshot_every=1, device=dev)
+    read("local_train")
+    with counted("local_train_resume"):
+        again, log = run_loop(tl.run_local_training, largs(3), snapshot_every=1, device=dev)
+    read("local_train_resume")
+    check(first["steps"] == 2 * 2 and again["start_epoch"] == 2 and again["steps"] == 2
+          and "RESUMED at epoch 2" in log and np.isfinite(again["curve"]).all()
+          and checkpoint_exists(str(w / "best_run_exp_local_stage")),
+          f"local_train: {first}, {again}")
+    notes["local_curve"] = again["curve"].tolist()
+
+    with counted("global_precal"):
+        precal, _ = run_loop(cli.global_precal_main, cuda + [
+            "--data_path", str(data), "--model_path", str(w)])
+    read("global_precal")
+    n_launch = -(-N_GEN_TRAIN // PRECAL_BATCH) + -(-N_GEN_VAL // PRECAL_BATCH)
+    check(launches["global_precal"]["wedge_colors"] == n_launch
+          and launches["global_precal"]["wedge_render"] == 0,
+          f"global_precal launches {launches['global_precal']}, want {n_launch} wedge_colors")
+    tokens = np.load(data / "params_src_train.npy")
+    check(tokens.shape == (N_GEN_TRAIN, 2, grid.num_tokens, 19) and tokens.dtype == np.float32
+          and np.isfinite(tokens).all(), f"params_src_train {tokens.shape} {tokens.dtype}")
+    notes["precal_seconds"] = precal
+
+    # the card's tokens of the first 4 pairs against the CPU chain (plain
+    # colors), as tests/test_torch_cuda.py::test_precal_tokens_card_vs_cpu
+    # holds them: at most 1% of the entries outside rtol 2e-3 / atol 2e-4
+    pairs = torch.from_numpy(np.load(data / "images_ny_train.npy")[:4]
+                             / np.load(data / "alphas_train.npy")[:4, None, None, None, None])
+    with redirect_stdout(io.StringIO()):
+        want = make_precal_fn(load_local_stage(str(w), "cpu"), patch_cfg, grid)(pairs)
+    d = (torch.from_numpy(tokens[:4]) - want).abs()
+    far = (d > 2e-4 + 2e-3 * want.abs()).float().mean().item()
+    check(far <= 1e-2, f"precal card vs CPU: {far} of the token entries outside rtol 2e-3 atol 2e-4")
+    notes["precal_vs_cpu"] = dict(far_share=far, max_abs=d.max().item(),
+                                  p99_abs=d.flatten().kthvalue(int(0.99 * d.numel())).values.item())
+
+    # the kernel alone against its plain version on one precal device
+    # batch's own inputs (P = 8 x 2 x 4,096 patches), with no allowance
+    imgs = torch.from_numpy(
+        np.load(data / "images_ny_train.npy", mmap_mode="r")[:PRECAL_BATCH]
+        / np.load(data / "alphas_train.npy")[:PRECAL_BATCH, None, None, None, None]).to(dev)
+    with redirect_stdout(io.StringIO()):
+        model = load_local_stage(str(w), dev)
+    with torch.inference_mode(), float32_precision():
+        flat = unfold(imgs.reshape((-1,) + imgs.shape[2:]), grid.R, grid.stride)
+        flat = flat.reshape(-1, grid.R, grid.R, 3).contiguous()
+        params = wrap_local_params(model(flat)).contiguous()
+        got = wedge_cuda.wedge_colors(params, flat, patch_cfg)
+        want = wedge_cuda.wedge_colors_plain(params, flat, patch_cfg)
+    notes["precal_colors_vs_plain"] = dict(patches=len(params),
+                                           max_abs=compare_colors(got, want))
+
+    gargs = get_args("global_train", argv=[
+        "--data_path", str(data), "--model_path", str(w), "--log_path", str(root / "logs_global"),
+        "--epoch_num", "1", "--attn_impl", "flash"])
+    with counted("global_train"):
+        _, glog = run_loop(tg.run_global_training, gargs, device=dev)
+    read("global_train")
+    steps, val_batches = N_GEN_TRAIN // BATCH, N_GEN_VAL // BATCH
+    want_flash = {k: steps * STEP_LAUNCHES[k] + val_batches * VAL_BATCH_LAUNCHES[k]
+                  for k in STEP_LAUNCHES}
+    got_flash = {k: launches["global_train"][k] for k in STEP_LAUNCHES}
+    curve = np.load(root / "logs_global" / "loss_curve_exp_global_stage.npy")
+    check(got_flash == want_flash and np.isfinite(curve).all()
+          and checkpoint_exists(str(w / "best_run_exp_global_stage")),
+          f"global_train on the generated tokens: flash {got_flash}, want {want_flash}, "
+          f"curve {curve}")
+    notes["global_val"] = curve.tolist()
+
+    with counted("gen_test"):
+        cli.gen_test_main(cuda + ["--data_path", str(root / "data_test"),
+                                  "--num_sample_test", str(N_GEN_TEST)])
+    read("gen_test")
+    with counted("gen_test_big"):
+        cli.gen_test_main(["--big"] + cuda + ["--data_path", str(root / "data_test"),
+                                              "--num_sample_test", str(N_GEN_TEST_BIG)])
+    read("gen_test_big")
+    notes["test_noise_z"] = [check_generated_test(root / "data_test", N_GEN_TEST, H),
+                             check_generated_test(root / "data_test_big", N_GEN_TEST_BIG, BIG)]
+
+    scores = {}
+    for d_ in (None, "w"):
+        args = get_args("eval", argv=["--data_path", str(root / "data_test"),
+                                      "--model_path", str(w)])
+        args.densify = d_
+        with redirect_stdout(io.StringIO()):
+            mods = load_inference_modules(args, densify=d_, device=dev)
+        with counted(f"run_eval_{d_}"):
+            res, log = run_loop(pipe.run_eval, args, mods, device=dev)
+        read(f"run_eval_{d_}")
+        check(launches[f"run_eval_{d_}"]["wedge_colors"] == N_GEN_TEST + 1
+              and launches[f"run_eval_{d_}"]["wedge_render"] == N_GEN_TEST + 1
+              and all(math.isfinite(v) for v in res.values()), f"run_eval {d_}: {res}")
+        scores[f"run_eval_{d_}"] = res
+    args = get_args("eval", big=True, argv=["--data_path", str(root / "data_test_big"),
+                                            "--model_path", str(w)])
+    with redirect_stdout(io.StringIO()):
+        mods = load_inference_modules(args, big=True, device=dev)
+    with counted("run_eval_big"):
+        res, log = run_loop(pipe_big.run_eval_big, args, mods, device=dev)
+    read("run_eval_big")
+    per_call = -(-N_BLOCKS // args.block_chunk)
+    check(launches["run_eval_big"]["wedge_colors"] == (N_GEN_TEST_BIG + 1) * per_call
+          and all(math.isfinite(v) for v in res.values()), f"run_eval_big: {res}")
+    scores["run_eval_big"] = res
+    notes["scores"] = scores
+    return launches, clock, notes
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1074,6 +1329,35 @@ def main() -> int:
     print(f"train: one step at 51x51, 2 layers, card (kernels) vs CPU (plain): "
           f"{ {k: float(f'{v:.3g}') for k, v in agree_cpu.items()} } ok")
 
+    # 7b. the training-data path (the seventh slice): generate, train the
+    # local stage, precal, train the global stage on those tokens, generate
+    # test sets and evaluate them; each stage's launches counted from 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        gen_launches, gen_clock, gen_notes = run_datagen_path(Path(tmp), dev, grid, patch_cfg)
+    for stage in ("global_precal", "run_eval_None", "run_eval_w", "run_eval_big"):
+        launches_by_path[f"datagen_{stage}"] = {k: gen_launches[stage][k]
+                                                for k in ("wedge_colors", "wedge_render")}
+    launches_train = {k: launches_train[k] + gen_launches["global_train"][k]
+                      for k in STEP_LAUNCHES}
+    errs["wedge_colors"] = max(errs["wedge_colors"],
+                               gen_notes["precal_colors_vs_plain"]["max_abs"])
+    print(f"datagen: gen_trainval {N_GEN_TRAIN}/{N_GEN_VAL} scenes (phases "
+          f"{ {k: round(v, 2) for k, v in gen_notes['gen_phases'].items()} } s; shot-noise bias "
+          f"{ {k: round(float(v), 2) for k, v in gen_notes['noise_z'].items()} } standard "
+          f"errors), "
+          f"local_train 2 epochs + 1 resumed (val {np.round(gen_notes['local_curve'], 5).tolist()}), "
+          f"global_precal {N_GEN_TRAIN + N_GEN_VAL} pairs in batches of {PRECAL_BATCH} "
+          f"({gen_launches['global_precal']['wedge_colors']} wedge_colors launches; card vs CPU "
+          f"tokens of 4 pairs: {gen_notes['precal_vs_cpu']}; kernel vs plain on a device "
+          f"batch: {gen_notes['precal_colors_vs_plain']}), global_train 1 epoch on those "
+          f"tokens (val {np.round(gen_notes['global_val'], 5).tolist()}), gen_test "
+          f"{N_GEN_TEST} + {N_GEN_TEST_BIG} big pairs (noise bias "
+          f"{np.round(gen_notes['test_noise_z'], 2).tolist()}), evals "
+          + "; ".join(f"{k} delta1 {v['delta1']:.4f} at {v['pairs_per_sec']:.3f} pairs/s"
+                      for k, v in gen_notes["scores"].items()) + " ok")
+    print(f"time datagen stages (s, peak device memory): {gen_clock.line()} [{card}]")
+    print(f"datagen launches by stage: {gen_launches}")
+
     # 8. timings; the wedge kernels back to back (warm) and with the L2
     # cache flushed before each launch (cold: on the serving path the local
     # CNN runs between unfold and the kernels), at one pair and at x4
@@ -1277,7 +1561,8 @@ def main() -> int:
             reached_by="blurry_edges_tpu/models/global_stage.py:21",
             launches=launches_train[name],
             launches_by_path={"train": calls["train"]["flash"][name],
-                              "resume": calls["resume"]["flash"][name]},
+                              "resume": calls["resume"]["flash"][name],
+                              "datagen_global_train": gen_launches["global_train"][name]},
             max_abs_err=errs[name], ms=f_ms[name], plain_ms=f_plain[name],
             bound_ms=bound, bound_by=bound_by, bound_fp32_ms=f_bound[name]["fp32"][0],
             library_ms=f_lib[name]))

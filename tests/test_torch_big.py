@@ -174,13 +174,18 @@ def assert_big_maps_close(ours, theirs):
     same rtol/atol on all but 0.1% of their entries (and their p99.9
     within atol). A pixel whose side of a wedge edge, or whose edge, moves
     in one of the ~121 patches that cover it moves the folded mean by up to
-    its jump / 121; float32-level differences move them where a patch sits
-    on a knife edge (sums in another order, and the port's float64 3x3
-    inverse where the JAX package's float32 one cancels, ROADMAP.md section
-    3; not traced to single patches). On this pair, on the CPU, 63 of the
-    1,033,707 entries of global_shpd (max 0.013) and 143 of the 344,569 of
-    global_bndry (max 0.010) lie past rtol/atol 5e-3; the 147x147 cases
-    have none."""
+    its jump / 121. On this pair, on the CPU, 63 of the 1,033,707 entries
+    of global_shpd (max 0.013) and 143 of the 344,569 of global_bndry (max
+    0.010) lie past rtol/atol 5e-3; the 147x147 cases have none. Traced
+    block by block (trace_587_pair.py): they come from 5 and 7 patches in 6 of
+    the 36 blocks, and from the local CNN's float32 rounding, which both
+    packages share (each lies within ~7e-3 of a float64 CNN): in 19 of
+    the 294,912 local patches an angle sits at 0 = 2 pi and wraps to the
+    other side (an opening angle's wrap flips its wedge between empty and
+    full, and its token by 2), and elsewhere the colors amplify ~1e-3 parameter differences
+    to ~2e-2 in their tokens; the global stage spreads a token's change
+    over its block. Fed the same tokens, the port's global stage is JAX's
+    to 3e-5, and fed the same global output its render is JAX's to 8e-4."""
     assert set(ours) == set(theirs)
     for k in theirs:
         assert tuple(ours[k].shape) == theirs[k].shape, k

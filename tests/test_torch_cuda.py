@@ -385,3 +385,82 @@ def test_bf16_estimator_on_the_card_matches_the_cpu(dev):
     assert wedge_cuda.launch_counts() == {"wedge_colors": 1, "wedge_render": 1}
     for k, v in out.items():
         assert v.dtype == torch.float32 and torch.isfinite(v).all(), k
+
+
+def test_shapes_synthesis_card_vs_cpu(dev):
+    """The train/val scene synthesis at 147x147 from the same draws, on the
+    card and on the CPU: the SDFs' cos/sin and the blurs' sums differ in
+    the last bits, so a knife-edge pixel may flip. The rounded images differ
+    by at most 1 on at most 1e-3 of their entries, the other maps on at
+    most 1e-3 of theirs (the distances and Sobel maps, which a flipped
+    boundary or rounded pixel moves around it, on at most 1e-2) by more
+    than 1e-4."""
+    from blurry_edges_tpu_torch.data import shapes_gen as sg
+
+    cfg = sg.ShapeGenConfig()
+    draws = sg.draw_shapes(torch.Generator().manual_seed(5), 4, cfg)
+    cpu = sg.synthesize_from_draws(draws, cfg)
+    card = sg.synthesize_from_draws({k: v.to(dev) for k, v in draws.items()}, cfg)
+    d_img = (card["imgs"].cpu() - cpu["imgs"]).abs()
+    assert d_img.max().item() <= 1 and (d_img > 0).float().mean().item() <= 1e-3
+    for k, share in (("img_aif", 1e-3), ("boundary_loc", 1e-3), ("image_depth", 1e-3),
+                     ("boundary_depth", 1e-3), ("boundary_dist", 1e-2), ("deri", 1e-2)):
+        d = (card[k].cpu() - cpu[k]).abs()
+        assert card[k].shape == cpu[k].shape and (d > 1e-4).float().mean().item() <= share, k
+
+
+def test_render_layer_card_vs_cpu(dev):
+    """The test sets' layered defocus at 147x147 (151 key-points x 2
+    apertures x 4 channels in one depthwise convolution a pass), card
+    against CPU, as tests/test_torch_realistic_gen.py holds it to JAX's:
+    rtol 1e-4, atol 1e-3 on values up to 255."""
+    from blurry_edges_tpu_torch.data import realistic_gen as rg
+
+    g = torch.Generator().manual_seed(6)
+    H = 147
+    yy = torch.arange(H, dtype=torch.float32)[:, None].expand(H, H) / H
+    depth = 0.8 + 0.3 * yy + 0.02 * torch.rand((H, H), generator=g)
+    pts = rg._linspace(depth.max(), depth.min(), 151)
+    img = torch.rand((H, H, 3), generator=g) * 255
+    mask = torch.rand((H, H), generator=g) < 0.5
+    want_img, want_mask = rg.render_layer(depth, pts, img, mask, CamConfig(), 4.0, 17)
+    with float32_precision():
+        got_img, got_mask = rg.render_layer(depth.to(dev), pts.to(dev), img.to(dev),
+                                            mask.to(dev), CamConfig(), 4.0, 17)
+    torch.testing.assert_close(got_img.cpu(), want_img, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got_mask.cpu(), want_mask, rtol=1e-4, atol=1e-5)
+
+
+def test_precal_tokens_card_vs_cpu(dev):
+    """Global precal's tokens at 147x147, 2 pairs, random full-width local
+    weights, card (CNN by cuDNN, colors by the wedge_colors kernel, one
+    launch) against CPU (the plain colors). The colors the kernel solves
+    from the card's own parameters are the plain version's to rtol 2e-3 /
+    atol 2e-4. End to end two float32 CNNs differ in the last bits, which
+    the colors amplify and which flip an angle's wrap at 0 / 2 pi: at most
+    1% of the token entries lie outside rtol 2e-3 / atol 2e-4 (the JAX and
+    port CPU chains over 36 committed-weight blocks: 0.29%)."""
+    from blurry_edges_tpu_torch.ops.params import wrap_local_params
+    from blurry_edges_tpu_torch.ops.patchify import unfold
+    from blurry_edges_tpu_torch.train.global_precal import make_precal_fn
+
+    mods = random_modules(torch.Generator().manual_seed(0), "cpu")
+    local_cpu = mods.local_model
+    local_card = random_modules(torch.Generator().manual_seed(0), dev).local_model
+    g = torch.Generator().manual_seed(9)
+    pairs = torch.rand((2, 2, 147, 147, 3), generator=g)
+    grid = GridConfig()
+    want = make_precal_fn(local_cpu, PATCH, grid)(pairs)
+    wedge_cuda.reset_launch_counts()
+    got = make_precal_fn(local_card, PATCH, grid)(pairs.to(dev))
+    torch.cuda.synchronize()
+    assert wedge_cuda.launch_counts()["wedge_colors"] == 1
+    assert got.shape == want.shape == (2, 2, grid.num_tokens, 19)
+    far = ((got.cpu() - want).abs() > 2e-4 + 2e-3 * want.abs()).float().mean().item()
+    assert torch.isfinite(got).all() and far <= 1e-2, far
+    with torch.inference_mode(), float32_precision():
+        flat = unfold(pairs.to(dev).reshape(4, 147, 147, 3), R, 2).reshape(-1, R, R, 3)
+        params = wrap_local_params(local_card(flat)).contiguous()
+        colors = wedge_cuda.wedge_colors(params, flat, PATCH)
+        plain = wedge_cuda.wedge_colors_plain(params, flat, PATCH)
+    torch.testing.assert_close(colors, plain, rtol=2e-3, atol=2e-4)

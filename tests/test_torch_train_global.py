@@ -509,5 +509,6 @@ def test_cli_entry_and_device_default(tmp_path, dataset):
     assert (tmp_path / "w" / "best_run_exp_global_stage_w.pth").exists()
     assert (tmp_path / "w" / "done_global_w").exists()
     assert isinstance(get_args("global_train", argv=[]), argparse.Namespace)
-    with pytest.raises(ValueError, match="not ported"):
-        get_args("local_train", argv=[])
+    assert isinstance(get_args("local_train", argv=[]), argparse.Namespace)
+    with pytest.raises(ValueError, match="unknown mode"):
+        get_args("train_local", argv=[])
