@@ -118,7 +118,7 @@ def get_args(mode: str, big: bool = False, argv: Optional[list] = None) -> argpa
         add('--beta_smthns', type=float, default=0.0005, help='weight for smoothness error')
         add('--dynamic_epoch', type=int, default=200, help='key epoch of dynamic scheduling')
         add('--dp_devices', type=int, default=0,
-            help='data-parallel devices (0/1 = one device; more is not ported)')
+            help='data-parallel devices (0/1 = one device; D > 1 starts D ranks)')
         return parser.parse_args(argv)
 
     if mode == 'global_pre':
@@ -151,7 +151,7 @@ def get_args(mode: str, big: bool = False, argv: Optional[list] = None) -> argpa
         add('--vis_max', type=int, default=0,
             help='write the 10-panel visualization for only the first N pairs (0 = all)')
         add('--dp_devices', type=int, default=0,
-            help='data-parallel devices (0/1 = one device; more is not ported)')
+            help='data-parallel devices (0/1 = one device; D > 1 starts D ranks)')
         if big:
             add('--n_margin_patch', type=int, default=10,
                 help='number of margin patches that will be removed for global maps')
@@ -189,6 +189,8 @@ def get_args(mode: str, big: bool = False, argv: Optional[list] = None) -> argpa
     add('--time_budget_s', type=int, default=0, help='exit cleanly (snapshot + resume marker) after N seconds of training (0 = no budget)')
     add('--init_from', type=str, default=None, help='warm-start the model from this .pth checkpoint (optimizer/scheduler state starts fresh)')
     add('--w_variant', action='store_true', help="train the 'w'-variant global stage: depth term on hard wedge-side masks; saved under *_w names")
+    add('--dp_devices', type=int, default=0,
+        help='data-parallel devices (0/1 = one device; D > 1 starts D ranks)')
     return parser.parse_args(argv)
 
 

@@ -18,7 +18,8 @@ Everything after those casts (the wedge kernels, DfD, fold and the 0.05
 threshold) is float32.
 
 ``run_eval`` is the dataset loop of the JAX package's ``run_eval``
-(reference blurry_edges_test.py:102-172) on one device.
+(reference blurry_edges_test.py:102-172), on one device or, under
+``--dp_devices D``, in groups of D pairs over D ranks (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -206,25 +207,46 @@ def synchronize(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def score_pairs(args, ds, n: int, estimate, device, visualizer=None) -> dict:
+def timed_groups(ds, n: int, estimate, mesh, group: Optional[int] = None):
+    """(j, img_ny, gt_depth, out, seconds) for pairs 0..n-1: the loop of the
+    JAX package's ``run_eval``, for any D. Pairs go in groups of ``group``
+    (default D): pair g + r on rank r, the last group padded with its last
+    pair (the pads not yielded), every rank's maps gathered to every rank.
+    ``group`` 1 gives every rank the same pair (``run_eval_big`` splits
+    each pair's blocks over the ranks). A group is timed from the rank's
+    numpy array to a finished device (the JAX loop times ``jnp.asarray`` to
+    ``block_until_ready``); seconds a pair = the group's time / its size."""
+    from ..parallel.mesh import all_gather, barrier
+
+    size = group or mesh.size
+    for g in range(0, n, size):
+        idx = list(range(g, min(g + size, n)))
+        mine = idx[min(mesh.rank, len(idx) - 1)]
+        img_mine = ds[mine]
+        barrier(mesh)
+        t0 = time.time()
+        out = estimate(img_mine[0])
+        outs = ({k: all_gather(v, mesh) for k, v in out.items()} if size > 1  # (D, 1, ...)
+                else {k: v[None] for k, v in out.items()})
+        synchronize(mesh.device)
+        dt = (time.time() - t0) / size
+        for i, j in enumerate(idx):
+            img_ny, gt_depth = img_mine if j == mine else ds[j]
+            yield j, img_ny, gt_depth, {k: v[i] for k, v in outs.items()}, dt
+
+
+def score_pairs(args, pairs, n: int, visualizer=None) -> dict:
     """The evaluation loop of the JAX package's ``run_eval`` and
-    ``run_eval_big``: each pair timed from its numpy array to a finished
-    device (the JAX loop times ``jnp.asarray`` to ``block_until_ready``),
+    ``run_eval_big`` over ``pairs`` (``timed_groups``):
     per-image metrics and prints, images with no predicted pixel inside the
     crop excluded from the averages (their masked metrics are 0/0), and the
-    dataset averages. ``estimate`` maps a (2, H, W, 3) numpy pair to maps
-    with a leading axis of 1 and has been called once already."""
+    dataset averages. The estimator has been called once already."""
     from .metrics import eval_depth
 
     totals = np.zeros(5)
     total_time = 0.0
     n_scored = 0
-    for j in range(n):
-        img_ny, gt_depth = ds[j]
-        t0 = time.time()
-        out = estimate(img_ny)
-        synchronize(device)
-        dt = time.time() - t0
+    for j, img_ny, gt_depth, out, dt in pairs:
         total_time += dt
         depth = out["depth_final"].cpu().numpy()
         msk = depth > 0.0
@@ -261,25 +283,35 @@ def score_pairs(args, ds, n: int, estimate, device, visualizer=None) -> dict:
                 pairs_per_sec=n / total_time)
 
 
-def check_single_device(args) -> None:
-    if int(getattr(args, "dp_devices", 0) or 0) > 1:
-        raise NotImplementedError(
-            "--dp_devices > 1 is not ported (ROADMAP.md queue 1, item 8: parallelism)")
+def scored(args, pairs, n: int, mesh, visualizer) -> Optional[dict]:
+    """``score_pairs`` on rank 0; the other ranks run the loop's
+    collectives and return None."""
+    if mesh.is_main:
+        return score_pairs(args, pairs, n, visualizer)
+    for _ in pairs:
+        pass
+    return None
 
 
 def run_eval(args, modules: InferenceModules, visualizer=None, max_images=None,
-             profile_dir: Optional[str] = None, device="cuda") -> dict:
-    """147x147 dataset evaluation (the JAX package's ``run_eval``, one
-    device): ``args`` from ``config.get_args("eval")``, the models on
-    ``device``. The warm-up call on pair 0 is outside the timed loop.
-    ``profile_dir`` writes a ``torch.profiler`` trace of the timed loop
-    there (``trace.json``). Returns delta1..3, rmse, absrel (averages over
-    the scored images), avg_time and pairs_per_sec."""
+             profile_dir: Optional[str] = None, device="cuda", mesh=None) -> Optional[dict]:
+    """147x147 dataset evaluation (the JAX package's ``run_eval``): ``args``
+    from ``config.get_args("eval")``, the models on ``device``. The warm-up
+    call on pair 0 is outside the timed loop. ``profile_dir`` writes a
+    ``torch.profiler`` trace of the timed loop there (``trace.json``).
+    Returns delta1..3, rmse, absrel (averages over the scored images),
+    avg_time and pairs_per_sec.
+
+    ``mesh`` (``parallel.make_mesh`` inside a rank, ``--dp_devices``): the
+    pairs go in groups of D, one a rank (``timed_groups``); rank 0 scores,
+    prints and visualizes them in order and returns the dict, the other
+    ranks return None."""
     from ..config import cam_from_args, grid_from_args, patch_from_args
     from ..data.datasets import TestDataset
+    from ..parallel.mesh import make_mesh
 
-    check_single_device(args)
     device = resolve_device(device)
+    mesh = mesh or make_mesh(getattr(args, "dp_devices", 0), device=device)
     estimate = make_depth_estimator(modules, patch_from_args(args), grid_from_args(args),
                                     cam_from_args(args), densify=args.densify,
                                     rho_prime=args.rho_prime, device=device)
@@ -288,14 +320,16 @@ def run_eval(args, modules: InferenceModules, visualizer=None, max_images=None,
 
     estimate(ds[0][0])            # warm-up, outside the timed region
     synchronize(device)
+    pairs = timed_groups(ds, n, estimate, mesh)
     if not profile_dir:
-        return score_pairs(args, ds, n, estimate, device, visualizer)
+        return scored(args, pairs, n, mesh, visualizer)
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
     with profile(activities=activities) as prof:
-        res = score_pairs(args, ds, n, estimate, device, visualizer)
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        res = scored(args, pairs, n, mesh, visualizer)
+    if mesh.is_main:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     return res

@@ -11,19 +11,26 @@ edge blocks keep their outer margins: ``stitch_maps``) are copied into the
 big patch grid chunk by chunk, and everything is folded once at the big
 grid, as reference blurry_edges_test_big.py:142-183 does in a serial
 double loop.
+
+Under ``--dp_devices D`` (``parallel/mesh.py``; the JAX package's
+``shard_map`` over the block axis) the 36 blocks are padded to a multiple
+of D and split contiguously: each rank runs its share in chunks of
+min(block_chunk, its share), the big grids of kept patches are put
+together on every rank (each patch comes from one block, so a sum of the
+ranks' grids, zeros elsewhere, is exact), and each rank folds once.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import CamConfig, GridConfig, PatchConfig
 from ..utils.device import float32_precision, resolve_device
-from .pipeline import (InferenceModules, _as_tensor, check_single_device,
-                       fold_outputs, make_render_fn, score_pairs, synchronize)
+from .pipeline import (InferenceModules, _as_tensor, fold_outputs, make_render_fn, scored,
+                       synchronize, timed_groups)
 
 # render outputs and their per-patch trailing shapes (after B, [2,] Hp, Wp)
 _RENDER_KEYS = ("patches", "patches_shpd", "patches_refoc", "local_bndry",
@@ -79,15 +86,17 @@ def make_big_depth_estimator(mods: InferenceModules, patch_cfg: PatchConfig,
                              block_grid: GridConfig, big_grid: GridConfig,
                              cam: CamConfig, n_margin: int,
                              rho_prime: float = 10.39, depth_thres: float = 0.05,
-                             block_chunk: int = None, device="cuda") -> Callable:
+                             block_chunk: int = None, device="cuda", mesh=None) -> Callable:
     """(2, Hbig, Wbig, 3) pair (numpy or tensor, alpha-normalized) -> the
     big grid's maps with a leading axis of 1 (global_image (1, 2, H, W, 3),
     confidence (1, H, W), depth_final (1, H, W), ...), as the JAX
     ``make_big_depth_estimator`` returns them. ``block_chunk`` blocks run
     through the networks and each wedge kernel at once (default
     ``config.BLOCK_CHUNK``); the result does not depend on it. ``mods`` must
-    live on ``device``."""
+    live on ``device``. ``mesh``: the rank's data mesh; the blocks split
+    over its ranks."""
     from ..config import BLOCK_CHUNK
+    from ..parallel.mesh import all_reduce, make_mesh
 
     device = resolve_device(device)
     chunk = int(block_chunk or BLOCK_CHUNK)
@@ -105,13 +114,17 @@ def make_big_depth_estimator(mods: InferenceModules, patch_cfg: PatchConfig,
     rows = _spans(*stitch_maps(block_grid.H_patches, HpB, nb0, n_margin), nb0)
     cols = _spans(*stitch_maps(block_grid.W_patches, WpB, nb1, n_margin), nb1)
     n_blocks = nb0 * nb1
+    mesh = mesh or make_mesh(device=device)
+    per_rank = -(-n_blocks // mesh.size)          # the blocks padded to a multiple of D
+    mine = range(mesh.rank * per_rank, min(n_blocks, (mesh.rank + 1) * per_rank))
+    chunk = min(chunk, per_rank)
     render = make_render_fn(mods, patch_cfg, block_grid, cam, False, rho_prime)
 
-    def empty_grid(key):
+    def zero_grid(key):
         pix = (R, R, 3) if key.startswith("patches") else (R, R)
         lead = (1, 2) if key == "patches" else (1,)
         dtype = torch.int32 if key == "depth_mask" else torch.float32
-        return torch.empty(lead + (HpB, WpB) + pix, dtype=dtype, device=device)
+        return torch.zeros(lead + (HpB, WpB) + pix, dtype=dtype, device=device)
 
     @torch.inference_mode()
     @float32_precision()
@@ -119,9 +132,9 @@ def make_big_depth_estimator(mods: InferenceModules, patch_cfg: PatchConfig,
         img = _as_tensor(img_ny).to(device=device, dtype=torch.float32)
         blocks = [img[:, iv * bs0:iv * bs0 + Hb, ih * bs1:ih * bs1 + Wb, :]
                   for iv in range(nb0) for ih in range(nb1)]
-        st = {k: empty_grid(k) for k in _RENDER_KEYS}
-        for c0 in range(0, n_blocks, chunk):
-            ids = range(c0, min(c0 + chunk, n_blocks))
+        st = {k: zero_grid(k) for k in _RENDER_KEYS}
+        for c0 in range(mine.start, mine.stop, chunk):
+            ids = range(c0, min(c0 + chunk, mine.stop))
             rend = render(torch.stack([blocks[b] for b in ids]))
             for i, b in enumerate(ids):
                 I0, I1, l0, l1 = rows[b // nb1]
@@ -133,6 +146,8 @@ def make_big_depth_estimator(mods: InferenceModules, patch_cfg: PatchConfig,
                     else:
                         dst[I0:I1, J0:J1] = src[l0:l1, m0:m1]
             del rend
+        for k in _RENDER_KEYS:
+            all_reduce(st[k], mesh)
         out = fold_outputs(st, big_grid)
         out["depth_final"] = torch.where(out["confidence"] > depth_thres,
                                          out["global_depth"], 0.0)
@@ -142,24 +157,27 @@ def make_big_depth_estimator(mods: InferenceModules, patch_cfg: PatchConfig,
 
 
 def run_eval_big(args, modules: InferenceModules, visualizer=None,
-                 max_images=None, device="cuda") -> dict:
-    """587x587 dataset evaluation (the JAX package's ``run_eval_big``, one
-    device): ``args`` from ``config.get_args("eval", big=True)``, the
-    models on ``device``. Same prints, exclusion of empty images and
-    returned dict as ``pipeline.run_eval``."""
+                 max_images=None, device="cuda", mesh=None) -> Optional[dict]:
+    """587x587 dataset evaluation (the JAX package's ``run_eval_big``):
+    ``args`` from ``config.get_args("eval", big=True)``, the models on
+    ``device``. Same prints, exclusion of empty images and returned dict
+    as ``pipeline.run_eval``. ``mesh``: each pair's blocks split over the
+    ranks (``make_big_depth_estimator``); rank 0 scores and returns the
+    dict, the other ranks return None."""
     from ..config import cam_from_args, grid_from_args, patch_from_args
     from ..data.datasets import TestDataset
+    from ..parallel.mesh import make_mesh
 
-    check_single_device(args)
     device = resolve_device(device)
+    mesh = mesh or make_mesh(getattr(args, "dp_devices", 0), device=device)
     estimate = make_big_depth_estimator(
         modules, patch_from_args(args), grid_from_args(args, big=False),
         grid_from_args(args, big=True), cam_from_args(args), args.n_margin_patch,
         rho_prime=args.rho_prime, block_chunk=getattr(args, "block_chunk", None),
-        device=device)
+        device=device, mesh=mesh)
     ds = TestDataset(args.data_path)
     n = len(ds) if max_images is None else min(max_images, len(ds))
 
     estimate(ds[0][0])            # warm-up, outside the timed region
     synchronize(device)
-    return score_pairs(args, ds, n, estimate, device, visualizer)
+    return scored(args, timed_groups(ds, n, estimate, mesh, group=1), n, mesh, visualizer)

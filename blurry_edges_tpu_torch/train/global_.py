@@ -19,9 +19,10 @@ validation on the noisy ones (reference :210 vs :166).
 from __future__ import annotations
 
 import functools
+import math
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from ..ops.dfd import DfDSolver
 from ..ops.params import denormalize_global_train
 from ..ops.patchify import fold_count, fold_flat, unfold_flat_cm
 from ..ops.sobel import image_derivative, image_derivative_flat
+from ..parallel.mesh import Mesh, all_reduce, make_mesh, mean_gradients
 from ..ops.wedge import (boundary_distance_field_flat, depth_masks,
                          depth_masks_flat, dists2indicators, indicator_flat,
                          inverse_3x3, make_patch_grid, normalized_gaussian,
@@ -44,6 +46,8 @@ from .optim import clip_by_global_norm_, make_optimizer, set_lr, xavier_reinit
 
 GAMMA_ORDER = ("color", "color_cons", "bndry_cons", "smthns", "smthns_cons",
                "bndry_loc", "depth")
+# samples a chunk of the trainer's batch holds (gradient accumulation)
+CHUNK_SAMPLES = 2
 
 
 def render_pair_grid(xy_angles, etas, img_patches, patch_cfg: PatchConfig):
@@ -264,7 +268,8 @@ def compact_arrays(ds, include_ny: bool):
 
 def make_step_fns(model: GlobalStage, optimizer: torch.optim.Optimizer,
                   patch_cfg: PatchConfig, grid: GridConfig, dfd: DfDSolver,
-                  grad_accum: int = 1, hard_mask: bool = False):
+                  grad_accum: int = 1, hard_mask: bool = False,
+                  mesh: Optional[Mesh] = None):
     """(train_step, eval_step) of the JAX package's ``make_step_fns``.
 
     ``train_step(batch, gammas, seed)`` takes one AdamW step on the model's
@@ -273,14 +278,25 @@ def make_step_fns(model: GlobalStage, optimizer: torch.optim.Optimizer,
     Batches are expanded or compact. Both run in full float32 (TF32 off),
     the JAX package's ``default_matmul_precision("highest")``.
 
-    grad_accum > 1 splits the batch into that many chunks with exact batch
+    The batch splits into ``grad_accum`` chunks with exact batch
     semantics: terms 1-6 are the mean of the chunks' means and the depth
     term is sum(S) / sum(N), so no chunk's gradient is known before every
-    chunk's N is. Each chunk runs under activation checkpointing (the JAX
-    package's checkpointed scan body), the losses are summed and one
-    backward runs; a chunk's activations live only while its backward runs.
-    Chunk i draws its dropout from fold_in(seed, i).
+    chunk's N is. With more than one chunk, each runs under activation
+    checkpointing (the JAX package's checkpointed scan body), the losses
+    are summed and one backward runs; a chunk's activations live only
+    while its backward runs. Chunk i draws its dropout from
+    fold_in(seed, i).
+
+    Under a ``mesh`` of D ranks the batch is the rank's share of the global
+    batch and ``grad_accum`` its chunks: rank r's chunk j is global chunk
+    r * grad_accum + j and draws from fold_in(seed, r * grad_accum + j), so
+    D ranks draw the masks one process draws for D * grad_accum chunks. N
+    is all-reduced before the backward; the rank's loss is its chunks'
+    mean terms plus D * gamma_depth * S_r / N, whose mean over the ranks,
+    like the gradients' (averaged before the clip), is the global batch's.
+    Both steps return that global loss.
     """
+    mesh = mesh or make_mesh()
     params = [p for p in model.parameters() if p.requires_grad]
 
     def loss_parts(batch, seed, train):
@@ -293,21 +309,23 @@ def make_step_fns(model: GlobalStage, optimizer: torch.optim.Optimizer,
 
     def loss_fn(batch, gammas, seed, train):
         batch = expand_compact_batch(batch)
-        if grad_accum <= 1:
-            terms, S, N = loss_parts(batch, seed, train)
-            return (gammas[:6] * terms).sum() + gammas[6] * S / N
+        chunks = max(grad_accum, 1)
         B = batch["input_param"].shape[0]
-        if B % grad_accum:
-            raise ValueError(f"batch {B} does not split into {grad_accum} chunks")
-        c = B // grad_accum
+        if B % chunks:
+            raise ValueError(f"batch {B} does not split into {chunks} chunks")
+        c = B // chunks
         part = (functools.partial(checkpoint, loss_parts, use_reentrant=False)
-                if torch.is_grad_enabled() else loss_parts)
+                if torch.is_grad_enabled() and chunks > 1 else loss_parts)
         t_sum = S = N = 0.0
-        for i in range(grad_accum):
+        for i in range(chunks):
             chunk = {k: v[i * c:(i + 1) * c] for k, v in batch.items()}
-            terms, S_i, N_i = part(chunk, fold_in(seed, i), train)
+            terms, S_i, N_i = part(chunk, fold_in(seed, mesh.rank * chunks + i), train)
             t_sum, S, N = t_sum + terms, S + S_i, N + N_i
-        return (gammas[:6] * (t_sum / grad_accum)).sum() + gammas[6] * S / N
+        N = all_reduce(N.detach().clone(), mesh)
+        return (gammas[:6] * (t_sum / chunks)).sum() + gammas[6] * (mesh.size * S) / N
+
+    def global_mean(loss):
+        return all_reduce(loss.detach().clone(), mesh) / mesh.size
 
     def train_step(batch, gammas, seed: int):
         # reference quirk: colors solved on the clean images in training (:210)
@@ -315,13 +333,14 @@ def make_step_fns(model: GlobalStage, optimizer: torch.optim.Optimizer,
             loss = loss_fn(batch, gammas, seed, True)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            mean_gradients(params, mesh)
             clip_by_global_norm_(params, 1.0)
             optimizer.step()
-        return loss.detach()
+        return global_mean(loss)
 
     def eval_step(batch, gammas):
         with float32_precision(), torch.no_grad():
-            return loss_fn(batch, gammas, 0, False)
+            return global_mean(loss_fn(batch, gammas, 0, False))
 
     return train_step, eval_step
 
@@ -406,7 +425,7 @@ def gamma_ranges_from_args(args) -> Dict[str, tuple]:
 
 
 def run_global_training(args, snapshot_every: int = None, resume: bool = True,
-                        device="cuda") -> None:
+                        device="cuda", mesh: Optional[Mesh] = None) -> None:
     """The global-stage trainer's harness (reference global_training.py:
     173-225, with the JAX package's additions): the compact train set
     resident on the device (uint8 images, bf16 tokens); one optimizer step a
@@ -417,9 +436,24 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
     ``--skip_val`` / ``--val_batches`` bound the validation sweep. Writes
     ``best_run_<exp>.pth`` (the model's state dict) and
     ``last_<exp>.pth`` (the snapshot) under ``--model_path``.
+
+    A batch splits into chunks of ``CHUNK_SAMPLES`` samples (the JAX
+    package's gradient accumulation at the full 64x64 grid; chunks of one
+    for an odd batch), each drawing its dropout by its index in the batch,
+    at every grid and every D. ``mesh`` (``parallel.make_mesh`` inside a
+    rank; the JAX package's ``mesh``): each rank keeps its contiguous
+    share of the train set resident, every rank derives the same shuffle,
+    the global batch's rows are put together from the shares that hold
+    them (``gather_rows``) and each rank steps on its share of it, its
+    share of the chunks (``make_step_fns``), so D ranks draw the masks one
+    process draws; each rank reads its share of every validation batch;
+    the time budget's stop is taken together; rank 0 writes the
+    checkpoints, snapshots, logs and curve.
     """
     from ..config import cam_from_args, grid_from_args, patch_from_args
     from ..data.datasets import BatchIterator
+    from ..parallel.mesh import (any_rank, barrier, data_sharding, gather_rows, replicate,
+                                 shard_batch)
     from ..utils.io import TrainLogger, create_directory, show_curve
     from ..utils.seeding import set_seed
     from . import schedules
@@ -427,8 +461,11 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
     from .resume import load_step_snapshot, save_step_snapshot
 
     device = resolve_device(device)
+    mesh = mesh or make_mesh(getattr(args, "dp_devices", 0), device=device)
     root_seed = set_seed(1898)
-    create_directory(args.log_path, overwrite=False)
+    if mesh.is_main:
+        create_directory(args.log_path, overwrite=False)
+    barrier(mesh)
     patch_cfg = patch_from_args(args)
     grid = grid_from_args(args)
     dfd = DfDSolver.from_config(cam_from_args(args), patch_cfg)
@@ -442,7 +479,8 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
     t_start = time.time()
 
     def say(msg):
-        print(f"[global +{time.time() - t_start:7.1f}s] {msg}", flush=True)
+        if mesh.is_main:
+            print(f"[global +{time.time() - t_start:7.1f}s] {msg}", flush=True)
 
     subset = getattr(args, "train_subset", 0)
     compact_train = load_global_compact(args.data_path, train=True, subset=subset)
@@ -454,10 +492,12 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
         f"{sum(v.nbytes for v in compact_train.values()) / 1e9:.2f} GB train")
 
     t0 = time.time()
-    data_train = to_device_batch(compact_train, device, bf16_tokens=True)
+    data_train = to_device_batch(shard_batch(compact_train, mesh), device, bf16_tokens=True)
+    start = data_sharding(n_train, mesh).start
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    say(f"train set resident on {device} ({time.time() - t0:.1f}s transfer)")
+    say(f"train set resident on {device} ({time.time() - t0:.1f}s transfer"
+        + (f", a share on each of {mesh.size} ranks)" if mesh.size > 1 else ")"))
     del compact_train
 
     model = GlobalStage(in_parameter_size=args.input_size,
@@ -469,10 +509,15 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
         # warm start; optimizer and scheduler state start fresh
         model.load_state_dict(load_checkpoint(init_from))
         say(f"model warm-started from {init_from}")
-    # gradient accumulation at the full grid: chunks of 2 samples
-    grad_accum = args.batch_size // 2 if grid.num_tokens >= 4096 else 1
-    train_step, eval_step = make_step_fns(model, optimizer, patch_cfg, grid, dfd,
-                                          grad_accum, hard_mask=w_variant)
+    replicate(model, mesh)
+    n_chunks = args.batch_size // math.gcd(args.batch_size, CHUNK_SAMPLES)
+    if n_chunks % mesh.size:
+        raise ValueError(f"batch {args.batch_size} in {n_chunks} chunks does not split "
+                         f"over {mesh.size} ranks")
+    chunks = n_chunks // mesh.size       # a rank's
+    share = data_sharding(args.batch_size, mesh)
+    train_step, eval_step = make_step_fns(model, optimizer, patch_cfg, grid, dfd, chunks,
+                                          hard_mask=w_variant, mesh=mesh)
 
     def eval_sweep(gammas, max_batches=None):
         nb = n_val // args.batch_size
@@ -480,7 +525,7 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
             nb = min(nb, max_batches)
         total = 0.0
         for b in range(nb):
-            sl = slice(b * args.batch_size, (b + 1) * args.batch_size)
+            sl = slice(b * args.batch_size + share.start, b * args.batch_size + share.stop)
             batch = to_device_batch({k: v[sl] for k, v in compact_val.items()}, device)
             total += float(eval_step(batch, gammas))
         return total / max(nb, 1)
@@ -511,17 +556,19 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
             say(f"RESUMED at epoch {start_epoch} step {start_step} "
                 f"(best {best_loss:.6f} @ {best_epoch})")
 
-    logger = TrainLogger(f"{args.log_path}/{exp}_training.txt", args, append=resumed)
-    steplog = open(f"{args.log_path}/global_steps.log", "a")
+    logger = (TrainLogger(f"{args.log_path}/{exp}_training.txt", args, append=resumed)
+              if mesh.is_main else None)
+    steplog = open(f"{args.log_path}/global_steps.log", "a") if mesh.is_main else None
     if skip_val:
         say("NOTE: --skip_val: loss curve / best-checkpoint selection uses the "
             "mean TRAIN loss (deviation from reference best-VAL semantics, "
             "global_training.py:216-219)")
 
     def take_snapshot(epoch, step):
-        save_step_snapshot(snap_path, model, optimizer, sched, epoch=epoch, step=step,
-                           loss_sum=loss_sum, loss_count=loss_count,
-                           best_loss=best_loss, best_epoch=best_epoch)
+        if mesh.is_main:
+            save_step_snapshot(snap_path, model, optimizer, sched, epoch=epoch, step=step,
+                               loss_sum=loss_sum, loss_count=loss_count,
+                               best_loss=best_loss, best_epoch=best_epoch)
 
     stop = False
     for epoch in range(start_epoch, args.epoch_num):
@@ -531,26 +578,28 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
                                      seed=1898 + 7919 * epoch))
         first = start_step if epoch == start_epoch else 0
         for b in range(first, nb_train):
-            idx = torch.from_numpy(batches[b]).to(device)
-            batch = {k: v[idx] for k, v in data_train.items()}
+            batch = {k: v[share] for k, v in
+                     gather_rows(data_train, start, batches[b], mesh).items()}
             t0 = time.time()
             loss = train_step(batch, gammas, fold_in(fold_in(root_seed, epoch), b))
             loss = float(loss)  # a sync: the heartbeat's time is the step's
             dt = time.time() - t0
             loss_sum += loss
             loss_count += 1
-            steplog.write(f"{epoch:4d} {b:5d} {loss:.6f} {dt:7.3f}s\n")
-            steplog.flush()
+            if steplog is not None:
+                steplog.write(f"{epoch:4d} {b:5d} {loss:.6f} {dt:7.3f}s\n")
+                steplog.flush()
             if b == first or (b + 1) % 25 == 0:
                 say(f"epoch {epoch} step {b + 1}/{nb_train} "
                     f"loss {loss:.5f} ({dt:.2f}s/step)")
             if snapshot_every and (b + 1) % snapshot_every == 0:
                 take_snapshot(epoch, b + 1)
-            if time_budget and time.time() - t_start > time_budget:
+            if time_budget and any_rank(time.time() - t_start > time_budget, mesh):
                 say(f"time budget {time_budget}s reached at epoch {epoch} "
                     f"step {b + 1}; snapshotting and exiting cleanly")
                 take_snapshot(epoch, b + 1)
-                np.save(curve_path, curve)
+                if mesh.is_main:
+                    np.save(curve_path, curve)
                 stop = True
                 break
         if stop:
@@ -564,24 +613,30 @@ def run_global_training(args, snapshot_every: int = None, resume: bool = True,
             curve[epoch] = eval_sweep(final_g, val_batches)
             say(f"epoch {epoch} train {tr_loss:.6f} val {curve[epoch]:.6f} "
                 f"({time.time() - t0:.1f}s val sweep)")
-        logger.epoch(epoch, curve[epoch], sched.patience, sched.lr)
+        if mesh.is_main:
+            logger.epoch(epoch, curve[epoch], sched.patience, sched.lr)
         if curve[epoch] < best_loss:
             best_loss, best_epoch = curve[epoch], epoch
-            save_checkpoint(f"{args.model_path}/best_run_{exp}", model.state_dict())
+            if mesh.is_main:
+                save_checkpoint(f"{args.model_path}/best_run_{exp}", model.state_dict())
         # the LR scheduler steps only once the second schedule phase begins
         # (reference global_training.py:220-221)
         if epoch >= args.dynamic_epoch[1]:
             set_lr(optimizer, sched.step(curve[epoch]))
         take_snapshot(epoch + 1, 0)
-        np.save(curve_path, curve)
+        if mesh.is_main:
+            np.save(curve_path, curve)
+        barrier(mesh)
 
-    steplog.close()
-    if not stop:
-        np.save(curve_path, curve)
-        show_curve(args.log_path, curve, f"loss_curve_{exp}")
-        logger.footer(best_epoch, best_loss)
-        # completion marker for supervisor retry loops
-        done = "done_global_w" if w_variant else "done_global"
-        with open(f"{args.model_path}/{done}", "w") as f:
-            f.write(f"best {best_loss:.8f} @ epoch {best_epoch}\n")
-    logger.close()
+    if mesh.is_main:
+        steplog.close()
+        if not stop:
+            np.save(curve_path, curve)
+            show_curve(args.log_path, curve, f"loss_curve_{exp}")
+            logger.footer(best_epoch, best_loss)
+            # completion marker for supervisor retry loops
+            done = "done_global_w" if w_variant else "done_global"
+            with open(f"{args.model_path}/{done}", "w") as f:
+                f.write(f"best {best_loss:.8f} @ epoch {best_epoch}\n")
+        logger.close()
+    barrier(mesh)

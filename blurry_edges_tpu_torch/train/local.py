@@ -16,14 +16,17 @@ The reference's training step solves the wedge colors on the clean patch
 validation on the noisy one (:61); so do these steps.
 
 The patch set stays resident on the device; a step is one forward and one
-backward of the local CNN on a batch, in float32 (TF32 off).
+backward of the local CNN on a batch, in float32 (TF32 off). Under
+``--dp_devices D`` (the JAX package's mesh, ``parallel/mesh.py``) each rank
+holds its contiguous share of the patch set and steps on its share of every
+global batch.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +34,7 @@ import torch
 from ..config import PatchConfig
 from ..models.local_stage import LocalStage
 from ..ops.sobel import image_derivative
+from ..parallel.mesh import Mesh, make_mesh, mean_gradients
 from ..ops.wedge import (boundary_map, dists2indicators, make_patch_grid, params2dists,
                          params2etas, render_patches, solve_colors)
 from ..utils.device import float32_precision, resolve_device
@@ -62,12 +66,20 @@ def local_loss(est, img_for_colors, img_gt, bndry_dist, deri, patch: PatchConfig
     return color_term + betas[0] * loc_term + betas[1] * smth_term
 
 
-def make_step_fns(model: LocalStage, optimizer: torch.optim.Optimizer, patch: PatchConfig):
+def make_step_fns(model: LocalStage, optimizer: torch.optim.Optimizer, patch: PatchConfig,
+                  mesh: Optional[Mesh] = None):
     """(train_step, eval_step), each (batch, betas) -> the loss. The train
     step runs the model in train mode (BatchNorm on the batch's statistics,
     moving its running ones), solves the colors on the clean patches, and
     takes one clipped AdamW step; the eval step runs it in eval mode and
-    solves them on the noisy ones. Both in float32, TF32 off."""
+    solves them on the noisy ones. Both in float32, TF32 off.
+
+    Under a ``mesh`` of D ranks each rank steps on its share of the global
+    batch (BatchNorm on the global batch's statistics): the gradients are
+    averaged over the ranks before the clip, which so sees the global
+    gradient, and the train step returns the rank's loss (the global
+    batch's is the mean over the ranks)."""
+    mesh = mesh or make_mesh()
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(batch, betas):
@@ -78,6 +90,7 @@ def make_step_fns(model: LocalStage, optimizer: torch.optim.Optimizer, patch: Pa
                               batch["deri"], patch, betas)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            mean_gradients(params, mesh)
             clip_by_global_norm_(params, 1.0)
             optimizer.step()
         return loss.detach()
@@ -101,8 +114,10 @@ def init_state(seed: int, lr: float, device) -> Tuple[LocalStage, torch.optim.Ad
     return model, make_optimizer(model.parameters(), lr)
 
 
+
+
 def run_local_training(args, snapshot_every: int = 25, resume: bool = True,
-                       device="cuda") -> dict:
+                       device="cuda", mesh: Optional[Mesh] = None) -> dict:
     """The local trainer's harness (reference local_training.py:68-122): the
     normalised patch sets resident on ``device``; per epoch a shuffled pass
     (the shuffle derived from the epoch, so a resumed run takes the same
@@ -112,41 +127,60 @@ def run_local_training(args, snapshot_every: int = 25, resume: bool = True,
     ``last_exp_local_stage.pth``, every ``snapshot_every`` epochs, from
     which a later call resumes; the log, the loss curve (saved each epoch)
     and its plot. Returns the curve, the best epoch and loss, the epoch it
-    started from and the steps it took."""
+    started from and the steps it took.
+
+    ``mesh`` (``parallel.make_mesh`` inside a rank; the JAX package's
+    ``mesh``): each rank keeps its contiguous share of both patch sets
+    resident; every rank derives the same shuffle, the global batch's rows
+    are put together from the shares that hold them (``gather_rows``) and
+    each rank takes its share of the batch, which must divide by the
+    ranks; the validation sums are all-reduced; rank 0 writes the
+    checkpoints, the log and the curve, and the ranks meet at a barrier
+    after each epoch's files."""
     from ..config import patch_from_args
     from ..data.datasets import BatchIterator, ShapeDataset
-    from ..eval.pipeline import check_single_device
+    from ..parallel.mesh import (all_reduce, barrier, data_sharding, gather_rows, replicate,
+                                 shard_batch)
     from ..utils.io import TrainLogger, create_directory, show_curve
     from ..utils.seeding import set_seed
     from . import schedules
     from .checkpoint import save_checkpoint
     from .resume import load_step_snapshot, save_step_snapshot
 
-    check_single_device(args)
     device = resolve_device(device)
+    mesh = mesh or make_mesh(getattr(args, "dp_devices", 0), device=device)
     root_seed = set_seed(SEED)
-    create_directory(args.log_path, overwrite=False)
+    if mesh.is_main:
+        create_directory(args.log_path, overwrite=False)
+    barrier(mesh)
     patch = patch_from_args(args)
+    bs = args.batch_size
+    if bs % mesh.size:
+        raise ValueError(f"batch size {bs} does not split over {mesh.size} ranks")
+    share = data_sharding(bs, mesh)
     t_start = time.time()
 
     def say(msg):
-        print(f"[local +{time.time() - t_start:7.1f}s] {msg}", flush=True)
+        if mesh.is_main:
+            print(f"[local +{time.time() - t_start:7.1f}s] {msg}", flush=True)
 
     def resident(train):
         ds = ShapeDataset(args.data_path, train=train, mode="local")
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                for k, v in ds.batch(np.arange(len(ds))).items()}
+        part = shard_batch(ds.batch(np.arange(len(ds))), mesh)
+        return ({k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in part.items()}, data_sharding(len(ds), mesh).start, len(ds))
 
-    data_train, data_val = resident(True), resident(False)
-    n_train, n_val = len(data_train["img_ny"]), len(data_val["img_ny"])
-    say(f"data resident on {device}: {n_train} train and {n_val} val patches")
+    (data_train, start_train, n_train), (data_val, start_val, n_val) = \
+        resident(True), resident(False)
+    say(f"data resident on {device}: {n_train} train and {n_val} val patches"
+        + (f", a share on each of {mesh.size} ranks" if mesh.size > 1 else ""))
 
     model, optimizer = init_state(root_seed, args.learning_rate, device)
-    train_step, eval_step = make_step_fns(model, optimizer, patch)
+    replicate(model, mesh)
+    train_step, eval_step = make_step_fns(model, optimizer, patch, mesh)
     sched = schedules.PlateauScheduler(lr=args.learning_rate, factor=0.9, patience=2,
                                        min_lr=args.learning_rate * 0.1)
     final_betas = (args.beta_bndry_loc, args.beta_smthns)
-    bs = args.batch_size
     nb_train, nb_val = n_train // bs, n_val // bs
     best_loss, best_epoch, start_epoch = np.inf, 0, 0
     snap_path = f"{args.model_path}/last_exp_local_stage"
@@ -162,39 +196,49 @@ def run_local_training(args, snapshot_every: int = 25, resume: bool = True,
             prev = np.load(curve_path)
             curve[:min(len(prev), len(curve))] = prev[:len(curve)]
             say(f"RESUMED at epoch {start_epoch} (best {best_loss:.6f} @ {best_epoch})")
-    logger = TrainLogger(f"{args.log_path}/exp_local_stage_training.txt", args, append=resumed)
+    logger = (TrainLogger(f"{args.log_path}/exp_local_stage_training.txt", args, append=resumed)
+              if mesh.is_main else None)
+
+    def batch_share(data, start, idx):
+        rows = gather_rows(data, start, idx, mesh)
+        return {k: v[share] for k, v in rows.items()}
 
     steps = 0
     for epoch in range(start_epoch, args.epoch_num):
         betas = schedules.beta_schedule(epoch, args.dynamic_epoch, *final_betas)
         loss_sum = torch.zeros((), device=device)
         for idx in BatchIterator(n_train, bs, shuffle=True, seed=root_seed + 7919 * epoch):
-            idx = torch.from_numpy(idx).to(device)
-            loss_sum += train_step({k: v[idx] for k, v in data_train.items()}, betas)
+            loss_sum += train_step(batch_share(data_train, start_train, idx), betas)
             steps += 1
         val_sum = torch.zeros((), device=device)
         for b in range(nb_val):
-            val_sum += eval_step({k: v[b * bs:(b + 1) * bs] for k, v in data_val.items()},
+            val_sum += eval_step(batch_share(data_val, start_val, np.arange(b * bs, (b + 1) * bs)),
                                  final_betas)
-        curve[epoch] = float(val_sum) / max(nb_val, 1)
+        sums = all_reduce(torch.stack([loss_sum, val_sum]), mesh) / mesh.size
+        curve[epoch] = float(sums[1]) / max(nb_val, 1)
 
         lr = sched.step(curve[epoch])
         sched.patience = schedules.local_patience(epoch)
         set_lr(optimizer, lr)
-        logger.epoch(epoch, curve[epoch], sched.patience, lr)
-        say(f"epoch {epoch} train {float(loss_sum) / max(nb_train, 1):.6f} "
+        say(f"epoch {epoch} train {float(sums[0]) / max(nb_train, 1):.6f} "
             f"val {curve[epoch]:.6f} lr {lr:.4e}")
         if curve[epoch] < best_loss:
             best_loss, best_epoch = curve[epoch], epoch
-            save_checkpoint(f"{args.model_path}/best_run_exp_local_stage", model.state_dict())
-        np.save(curve_path, curve)
-        if snapshot_every and (epoch + 1) % snapshot_every == 0:
-            save_step_snapshot(snap_path, model, optimizer, sched, epoch=epoch + 1, step=0,
-                               loss_sum=0.0, loss_count=0, best_loss=best_loss,
-                               best_epoch=best_epoch)
+            if mesh.is_main:
+                save_checkpoint(f"{args.model_path}/best_run_exp_local_stage", model.state_dict())
+        if mesh.is_main:
+            logger.epoch(epoch, curve[epoch], sched.patience, lr)
+            np.save(curve_path, curve)
+            if snapshot_every and (epoch + 1) % snapshot_every == 0:
+                save_step_snapshot(snap_path, model, optimizer, sched, epoch=epoch + 1, step=0,
+                                   loss_sum=0.0, loss_count=0, best_loss=best_loss,
+                                   best_epoch=best_epoch)
+        barrier(mesh)
 
-    show_curve(args.log_path, curve, "loss_curve_exp_local_stage")
-    logger.footer(best_epoch, best_loss)
-    logger.close()
+    if mesh.is_main:
+        show_curve(args.log_path, curve, "loss_curve_exp_local_stage")
+        logger.footer(best_epoch, best_loss)
+        logger.close()
+    barrier(mesh)
     return dict(curve=curve, best_epoch=best_epoch, best_loss=best_loss,
                 start_epoch=start_epoch, steps=steps)

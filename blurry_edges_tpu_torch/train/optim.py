@@ -14,7 +14,11 @@ Counterparts of the JAX package's ``train/local.py`` (:51-82), which builds
 - ``xavier_reinit``: Xavier normal (truncated at two standard deviations,
   as ``jax.nn.initializers.xavier_normal``) with the fans of the Flax
   parameter shapes, zero biases, unit norm scales (LayerNorm and
-  BatchNorm, whose running statistics are left as they are).
+  BatchNorm, whose running statistics are left as they are);
+- ``flax_default_init``: Flax's own defaults, which the JAX package's
+  depth-completion trainer starts its U-Net from (``model.init``, no
+  Xavier): LeCun normal kernels truncated at two standard deviations, zero
+  biases, unit BatchNorm scales and fresh running statistics.
 """
 
 from __future__ import annotations
@@ -59,12 +63,16 @@ def current_lr(optimizer: torch.optim.Optimizer) -> float:
     return float(optimizer.param_groups[0]["lr"])
 
 
-def _xavier_(t: torch.Tensor, fan_in: int, fan_out: int, g: torch.Generator):
-    """Drawn on the CPU from ``g`` and copied, so a model gets the same
+def _truncated_normal_(t: torch.Tensor, std: float, g: torch.Generator):
+    """Normal draws of standard deviation ``std`` truncated at two of them,
+    drawn on the CPU from ``g`` and copied, so a model gets the same
     weights on every device."""
-    std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
     draw = torch.empty(t.shape, dtype=t.dtype)
     t.copy_(nn.init.trunc_normal_(draw, std=std, a=-2.0 * std, b=2.0 * std, generator=g))
+
+
+def _xavier_(t: torch.Tensor, fan_in: int, fan_out: int, g: torch.Generator):
+    _truncated_normal_(t, math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD, g)
 
 
 @torch.no_grad()
@@ -106,3 +114,34 @@ def xavier_reinit(model: nn.Module, g: torch.Generator) -> None:
             mod.bias.zero_()
         elif any(True for _ in mod.parameters(recurse=False)):
             raise NotImplementedError(f"no Flax counterpart for {type(mod).__name__}")
+
+
+@torch.no_grad()
+def flax_default_init(model: nn.Module, g: torch.Generator) -> None:
+    """Initialise ``model`` in place as Flax's defaults initialise the Flax
+    model it mirrors, with draws from the CPU generator ``g``: every Conv,
+    ConvTranspose and Dense kernel LeCun normal (std sqrt(1 / fan_in)
+    truncated at two standard deviations, jax's ``lecun_normal``), fan_in
+    from the Flax kernel shape (kh, kw, in, out) -> kh * kw * in for both
+    convolutions (torch's ConvTranspose2d holds (in, out, kh, kw)), a Dense
+    kernel's in; biases zero; BatchNorm scales one, biases zero, running
+    mean zero and variance one."""
+    for mod in model.modules():
+        if isinstance(mod, nn.ConvTranspose2d):
+            i, _, kh, kw = mod.weight.shape
+            fan_in = kh * kw * i
+        elif isinstance(mod, nn.Conv2d) and mod.groups == 1:
+            _, i, kh, kw = mod.weight.shape
+            fan_in = kh * kw * i
+        elif isinstance(mod, nn.Linear):
+            fan_in = mod.in_features
+        elif isinstance(mod, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            mod.reset_parameters()
+            continue
+        elif any(True for _ in mod.parameters(recurse=False)):
+            raise NotImplementedError(f"no Flax counterpart for {type(mod).__name__}")
+        else:
+            continue
+        _truncated_normal_(mod.weight, math.sqrt(1.0 / fan_in) / _TRUNC_STD, g)
+        if mod.bias is not None:
+            mod.bias.zero_()

@@ -50,11 +50,13 @@ import copy
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from contextlib import redirect_stdout
 from pathlib import Path
 
@@ -83,6 +85,7 @@ from blurry_edges_tpu_torch.train import global_ as tg  # noqa: E402
 from blurry_edges_tpu_torch.train.checkpoint import checkpoint_exists  # noqa: E402
 from blurry_edges_tpu_torch.train.optim import make_optimizer, xavier_reinit  # noqa: E402
 from blurry_edges_tpu_torch.utils.device import float32_precision  # noqa: E402
+from blurry_edges_tpu_torch.utils.seeding import fold_in  # noqa: E402
 from blurry_edges_tpu_torch.utils.weights import random_modules  # noqa: E402
 
 SEED = 0
@@ -791,6 +794,7 @@ def run_datagen_path(root: Path, dev, grid: GridConfig, patch_cfg: PatchConfig):
 
     def read(name):
         launches[name] = {**wedge_cuda.launch_counts(), **fa.launch_counts()}
+        return launches[name]
 
     with counted("gen_trainval"), redirect_stdout(io.StringIO()):
         phases = cli.gen_trainval_main(cuda + ["--data_path", str(data), "--num_sample_train",
@@ -814,6 +818,9 @@ def run_datagen_path(root: Path, dev, grid: GridConfig, patch_cfg: PatchConfig):
           and checkpoint_exists(str(w / "best_run_exp_local_stage")),
           f"local_train: {first}, {again}")
     notes["local_curve"] = again["curve"].tolist()
+    notes["determinism"] = determinism_reading(data, root, dev)
+    print(f"step 0, determinism (local_train 2 epochs, twice each way): {notes['determinism']}",
+          flush=True)
 
     with counted("global_precal"):
         precal, _ = run_loop(cli.global_precal_main, cuda + [
@@ -856,6 +863,9 @@ def run_datagen_path(root: Path, dev, grid: GridConfig, patch_cfg: PatchConfig):
         want = wedge_cuda.wedge_colors_plain(params, flat, patch_cfg)
     notes["precal_colors_vs_plain"] = dict(patches=len(params),
                                            max_abs=compare_colors(got, want))
+    del model, imgs, flat, params, got, want
+    notes["cnn_float64"] = cnn_float64_reading(w, data, grid, dev)
+    print(f"step 0, float32 local CNN vs float64: {notes['cnn_float64']}", flush=True)
 
     gargs = get_args("global_train", argv=[
         "--data_path", str(data), "--model_path", str(w), "--log_path", str(root / "logs_global"),
@@ -911,8 +921,622 @@ def run_datagen_path(root: Path, dev, grid: GridConfig, patch_cfg: PatchConfig):
           and all(math.isfinite(v) for v in res.values()), f"run_eval_big: {res}")
     scores["run_eval_big"] = res
     notes["scores"] = scores
+    del mods
+    notes["densify"] = run_densify_path(root, data, w, dev, grid, patch_cfg, counted, read)
+    print(f"densify notes: {notes['densify']}", flush=True)
+    notes["parallel"] = run_dp_paths(root, w, dev)
     return launches, clock, notes
 
+
+
+# --------------------------------------------------------------- step 0, densify, parallel
+
+# the densify trainer on the chain's 64/32 scenes plus two realistic sets
+# of 8 and 4 pairs: 3 epochs from the pipeline's sparse maps, then one
+# epoch of simulated ones; the sparse maps' chunks timed over 32 pairs
+N_REAL_TRAIN, N_REAL_VAL, DENSIFY_EPOCHS, SWEEP_PAIRS = 8, 4, 3, 32
+SPARSE_CHUNKS = (4, 8, 16)
+CNN_CPU_PATCHES = 2048     # patches of step 0's float64 reading also run on the CPU
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms(True) (warnings for ops that have
+    no deterministic version, collected) and cudnn.deterministic, restored
+    on exit. CUBLAS_WORKSPACE_CONFIG is set before the first cuBLAS call
+    (main)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            yield caught
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+
+
+def local_args(data: Path, root: Path, tag: str, epochs: int = 2) -> argparse.Namespace:
+    return get_args("local_train", argv=[
+        "--data_path", str(data / "patches"), "--log_path", str(root / f"logs_local_{tag}"),
+        "--model_path", str(root / f"w_local_{tag}"), "--epoch_num", str(epochs)])
+
+
+def trained_local(data: Path, root: Path, tag: str, dev):
+    """local_train for 2 epochs (as phase 7b's first call) from scratch:
+    (curve, the trained state dict from the final snapshot)."""
+    from blurry_edges_tpu_torch.train import local as tl
+    from blurry_edges_tpu_torch.train.checkpoint import load_checkpoint
+
+    res, _ = run_loop(tl.run_local_training, local_args(data, root, tag), snapshot_every=2,
+                      resume=False, device=dev)
+    return res["curve"], load_checkpoint(str(root / f"w_local_{tag}" / "last_exp_local_stage"))["model"]
+
+
+def state_diff(a: dict, b: dict):
+    """(bit-identical, max |diff|, the first tensor in module order that differs)."""
+    first, worst = None, 0.0
+    for k in a:
+        d = (a[k].double() - b[k].double()).abs().max().item() if a[k].numel() else 0.0
+        if d > 0 and first is None:
+            first = k
+        worst = max(worst, d)
+    return first is None, worst, first
+
+
+def determinism_reading(data: Path, root: Path, dev) -> dict:
+    """Step 0, the first open fault: local_train (2 epochs) twice under
+    deterministic algorithms and twice without, each pair's trained state
+    dicts compared."""
+    out, curves = {}, {}
+    for mode in ("deterministic", "default"):
+        states = []
+        for i in range(2):
+            ctx = deterministic_algorithms() if mode == "deterministic" else contextlib.nullcontext([])
+            with ctx as caught:
+                curve, sd = trained_local(data, root, f"{mode}{i}", dev)
+            states.append(sd)
+            curves[mode, i] = curve
+            if mode == "deterministic" and i == 0:
+                out["ops_without_deterministic_version"] = sorted(
+                    {str(w.message).split(" does not have")[0][:80] for w in caught
+                     if "deterministic" in str(w.message)})
+        same, worst, first = state_diff(*states)
+        out[mode] = dict(bit_identical=same, max_abs_diff=worst, first_differing=first,
+                         val_curves=[curves[mode, 0].tolist(), curves[mode, 1].tolist()])
+    return out
+
+
+def cnn_float64_reading(w: Path, data: Path, grid: GridConfig, dev) -> dict:
+    """Step 0, the second open fault: the chain's trained local stage in
+    float32 against the same module cast to float64 on the card, over one
+    precal device batch (8 pairs, 65,536 patches), TF32 off: p99 and max
+    |diff| of the 10 raw outputs with cuDNN (the path precal and serving
+    run) and, over the first 8,192 patches, with cuDNN off; and over the
+    first 2,048 on the host's CPU, for scale."""
+    from blurry_edges_tpu_torch.train.global_precal import load_local_stage
+
+    with redirect_stdout(io.StringIO()):
+        m32 = load_local_stage(str(w), dev)
+    m64 = copy.deepcopy(m32).double()
+    imgs = torch.from_numpy(
+        np.load(data / "images_ny_train.npy", mmap_mode="r")[:PRECAL_BATCH]
+        / np.load(data / "alphas_train.npy")[:PRECAL_BATCH, None, None, None, None]).float().to(dev)
+    flat = unfold(imgs.reshape((-1,) + imgs.shape[2:]), grid.R, grid.stride)
+    flat = flat.reshape(-1, grid.R, grid.R, 3).contiguous()
+    out = {"patches": len(flat)}
+    for label, n, cudnn_on in (("cudnn", len(flat), True), ("no_cudnn", min(8192, len(flat)),
+                                                            False)):
+        saved = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = cudnn_on
+        try:
+            with torch.inference_mode(), float32_precision():
+                d = torch.cat([(m32(x).double() - m64(x.double())).abs().flatten()
+                               for x in flat[:n].split(4096)])
+        finally:
+            torch.backends.cudnn.enabled = saved
+        out[label] = dict(patches=n, p99=d.kthvalue(int(0.99 * d.numel())).values.item(),
+                          max=d.max().item())
+    # the same module and patches on this host's CPU (oneDNN), for scale
+    c32, c64, x = copy.deepcopy(m32).cpu(), copy.deepcopy(m64).cpu(), flat[:CNN_CPU_PATCHES].cpu()
+    with torch.inference_mode():
+        d = (c32(x).double() - c64(x.double())).abs().flatten()
+    out["cpu"] = dict(patches=len(x), p99=d.kthvalue(int(0.99 * d.numel())).values.item(),
+                      max=d.max().item())
+    return out
+
+
+def unet_step(dev, sparse, target, dtype=torch.float32):
+    """One densify train step (train-mode BatchNorm, clip, AdamW) of the
+    trainer's fresh U-Net (Flax's default init from its seed) on ``dev`` in
+    ``dtype``: (loss, clipped gradients, update over lr, running
+    statistics)."""
+    from blurry_edges_tpu_torch.models.unet import UNet
+    from blurry_edges_tpu_torch.train import densify as td
+    from blurry_edges_tpu_torch.train.optim import flax_default_init
+
+    model = UNet()
+    flax_default_init(model, torch.Generator().manual_seed(td.SEED))
+    model.to(device=dev, dtype=dtype)
+    opt = make_optimizer(model.parameters(), 1e-4)
+    before = [p.detach().clone() for p in model.parameters()]
+    step, _ = td.make_steps(model, opt, grad_loss_w=0.5)
+    loss = float(step(torch.from_numpy(sparse)[:, None].to(dev, dtype),
+                      torch.from_numpy(target).to(dev, dtype)))
+    grads = torch.cat([p.grad.detach().flatten().cpu() for p in model.parameters()]).double()
+    upd = torch.cat([((p.detach() - b) / 1e-4).flatten().cpu()
+                     for p, b in zip(model.parameters(), before)]).double()
+    stats = torch.cat([b.detach().flatten().cpu() for n, b in model.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))]).double()
+    return loss, grads, upd, stats
+
+
+def unet_step_agreement(card, cpu, ref, card64) -> dict:
+    """The card's float32 U-Net step and the CPU's against the CPU's
+    float64 one (``ref``), and the card's float64 step (``card64``) against
+    it. A gradient entry is clear where float64's lies 10x beyond both
+    float32 gradients' distance to it and at least 100 Adam eps (1e-6), so
+    Adam's first update there is the gradient's sign to ~1e-3 (41x41,
+    batch 2: 86% of the entries on the CPU); the noise sets the line, not
+    a share of the RMS, so no init is favoured."""
+    (lc, gc, uc, sc), (lp, gp, up, sp), (lr, gr, ur, _) = card, cpu, ref
+    noise = torch.maximum((gc - gr).abs(), (gp - gr).abs())
+    clear = (gr.abs() > 10 * noise) & (gr.abs() >= 1e-6)
+    rel = lambda g: ((g - gr).norm() / gr.norm()).item()  # noqa: E731
+    return dict(loss_rel=abs(lc - lr) / abs(lr), grad_rel_l2=rel(gc), cpu_grad_rel_l2=rel(gp),
+                f64_loss_rel=abs(card64[0] - lr) / abs(lr), f64_grad_rel_l2=rel(card64[1]),
+                stats_max=(sc - sp).abs().max().item(),
+                update_max_diff=(uc - ur).abs()[clear].max().item(),
+                cpu_update_max_diff=(up - ur).abs()[clear].max().item(),
+                update_max=(uc - ur).abs().max().item(),
+                clear_share=clear.double().mean().item())
+
+
+def unet_step_ok(a: dict) -> bool:
+    """The card computes the CPU's step: in float64 the loss to 1e-10 and
+    the gradient to 1e-8 (relative L2); in float32 the loss to 1e-4, the
+    running statistics to the CPU's to 1e-5, updates on clear entries
+    within 2e-3 of lr (over half the entries clear), every update within
+    2 lr. The float32 gradients' distance to float64 is recorded: from
+    this init the step is ill-conditioned (BatchNorm over the bottom's 2x2
+    maps), and float32 implementations scatter from 3e-6 to 1e-3."""
+    return (a["f64_loss_rel"] < 1e-10 and a["f64_grad_rel_l2"] < 1e-8
+            and a["loss_rel"] < 1e-4 and a["stats_max"] < 1e-5
+            and a["update_max_diff"] < 2e-3 and a["update_max"] <= 2.0
+            and a["clear_share"] > 0.5)
+
+
+def run_densify_path(root: Path, data: Path, w: Path, dev, grid, patch_cfg, counted, read):
+    """The densify trainer (the eighth slice) on the chain's weights and
+    scenes: the pipeline source with two realistic sets, then the simulated
+    source; its checkpoint served as densify pp; the first 4 sparse maps
+    card vs CPU; one U-Net step card vs CPU at 41x41; sparse maps/s at
+    chunks 4, 8, 16; ms a train step. Returns its notes."""
+    from blurry_edges_tpu_torch import cli
+    from blurry_edges_tpu_torch.train import densify as td
+    from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+
+    notes = {}
+    for name, n in (("real_train", N_REAL_TRAIN), ("real_val", N_REAL_VAL)):
+        with redirect_stdout(io.StringIO()):
+            cli.gen_test_main(["--cuda", str(dev), "--data_path", str(root / name),
+                               "--num_sample_test", str(n), "--img_size", str(grid.H),
+                               str(grid.W)])
+    dargs = get_args("local_train", argv=["--data_path", str(data), "--model_path", str(w),
+                                          "--log_path", str(root / "logs_densify")])
+    with redirect_stdout(io.StringIO()):
+        mods = load_inference_modules(dargs, device=dev)
+    with counted("densify_pipeline"):
+        res, log = run_loop(td.run_densify_training, dargs, epochs=DENSIFY_EPOCHS,
+                            source="pipeline", modules=mods,
+                            realistic_dirs=(str(root / "real_train"), str(root / "real_val")),
+                            device=dev)
+    got = read("densify_pipeline")
+    calls = sum(-(-n // td.SPARSE_CHUNK) for n in (N_GEN_TRAIN, N_GEN_VAL, N_REAL_TRAIN,
+                                                   N_REAL_VAL))
+    check(got["wedge_colors"] == got["wedge_render"] == calls and got["flash_fwd"] == 0,
+          f"densify pipeline launches {got}, want {calls} of each wedge kernel")
+    check(np.isfinite(res["curve"]).all() and res["curve"].shape == (DENSIFY_EPOCHS,)
+          and (res["n_train"], res["n_val"]) == (N_GEN_TRAIN + N_REAL_TRAIN,
+                                                 N_GEN_VAL + N_REAL_VAL)
+          and checkpoint_exists(str(w / "best_run_exp_depth_completion_pp")),
+          f"densify pipeline: {res}")
+    notes["pipeline"] = {k: res[k] for k in ("curve", "sparse_seconds", "epoch_seconds",
+                                             "steps", "n_train", "n_val")}
+    sargs = copy.copy(dargs)
+    sargs.model_path, sargs.log_path = str(root / "w_sim"), str(root / "logs_densify_sim")
+    with counted("densify_simulated"):
+        sim, _ = run_loop(td.run_densify_training, sargs, epochs=1, source="simulated",
+                          device=dev)
+    got = read("densify_simulated")
+    check(np.isfinite(sim["curve"]).all() and got["wedge_colors"] == got["wedge_render"] == 0
+          and checkpoint_exists(str(root / "w_sim" / "best_run_exp_depth_completion_pp")),
+          f"densify simulated: {sim['curve']}, launches {got}")
+    notes["simulated"] = {k: sim[k] for k in ("curve", "epoch_seconds", "steps")}
+
+    # the checkpoint served: densify pp through load_inference_modules
+    eargs = get_args("eval", argv=["--model_path", str(w)])
+    with redirect_stdout(io.StringIO()) as seen:
+        served = load_inference_modules(eargs, densify="pp", device=dev)
+    check(str(w / "best_run_exp_depth_completion_pp.pth") in seen.getvalue(),
+          "densify pp did not load the trained checkpoint")
+    pair = (np.load(root / "data_test" / "images_ny.npy")[0]
+            / np.load(root / "data_test" / "alphas.npy")[0]).astype(np.float32)
+    out = make_depth_estimator(served, patch_cfg, grid, CamConfig(), densify="pp",
+                               device=dev)(pair)
+    check(tuple(out["depth_final"].shape) == (1, grid.H, grid.W)
+          and torch.isfinite(out["depth_final"]).all().item(), "densify pp serving")
+    del served
+
+    # the first 4 sparse maps, card against the CPU port (0.05 confidence
+    # threshold: knife edges flip a few pixels between 0 and a depth)
+    card_maps = td._pipeline_sparse_depths(dargs, "train", mods, 4, chunk=4, device=dev)
+    with redirect_stdout(io.StringIO()):
+        cpu_mods = load_inference_modules(dargs, device="cpu")
+    cpu_maps = td._pipeline_sparse_depths(dargs, "train", cpu_mods, 4, chunk=4, device="cpu")
+    d = np.abs(card_maps - cpu_maps)
+    far = float((d > 5e-3).mean())
+    check(far <= 0.02 and (cpu_maps > 0).any(),
+          f"sparse maps card vs CPU: {far} of the entries apart by more than 5e-3")
+    notes["sparse_vs_cpu"] = dict(far_share=far, max_abs=float(d.max()),
+                                  p99_abs=float(np.quantile(d, 0.99)))
+
+    # one U-Net train step at 41x41, card against CPU, float32 and float64
+    r = np.random.default_rng(SEED + 21)
+    tgt = r.uniform(0.75, 1.18, (2, 41, 41)).astype(np.float32)
+    sp = np.where(r.uniform(size=tgt.shape) < 0.4, tgt, 0.0).astype(np.float32)
+    step_agree = unet_step_agreement(unet_step(dev, sp, tgt), unet_step("cpu", sp, tgt),
+                                     unet_step("cpu", sp, tgt, torch.float64),
+                                     unet_step(dev, sp, tgt, torch.float64))
+    check(unet_step_ok(step_agree), f"U-Net step card vs CPU: {step_agree}")
+    notes["unet_step_vs_cpu"] = step_agree
+
+    # sparse maps/s by chunk, 32 train pairs each after a warm-up call
+    rates = {}
+    for c in SPARSE_CHUNKS:
+        td._pipeline_sparse_depths(dargs, "train", mods, c, chunk=c, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        td._pipeline_sparse_depths(dargs, "train", mods, SWEEP_PAIRS, chunk=c, device=dev)
+        torch.cuda.synchronize()
+        rates[c] = SWEEP_PAIRS / (time.perf_counter() - t0)
+    notes["sparse_maps_per_s"] = rates
+    del mods
+
+    # ms a train step at batch 8, 147x147 (the trainer's step), and its peak
+    model, opt = td.init_state(1e-4, dev)
+    step, _ = td.make_steps(model, opt)
+    depth = torch.from_numpy(np.load(data / "image_depths_train.npy")[:8]).to(dev)
+    sp8 = torch.where(torch.rand(depth.shape, device=dev) > 0.6, depth, 0.0)[:, None]
+    step(sp8, depth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(sp8, depth)
+    torch.cuda.synchronize()
+    notes["train_step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    notes["train_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return notes
+
+
+def eval_maps_collector():
+    maps = {}
+    return maps, lambda j, img, gt, out: maps.setdefault(j, out)
+
+
+def dp_ws1_rank(root: str, w: str, device: str = "cuda:0") -> dict:
+    """World size 1 (under NCCL on the card): the four modes' data-parallel
+    paths through the command line, inside a rank; each mode's result and
+    launches."""
+    from blurry_edges_tpu_torch import cli
+
+    root, cuda, out = Path(root), ["--cuda", device], {}
+    modes = {
+        "local_train": (cli.local_train_main, cuda + [
+            "--data_path", str(root / "data" / "patches"), "--log_path",
+            str(root / "logs_dp1_local"), "--model_path", str(root / "w_dp1"),
+            "--epoch_num", "2"]),
+        "global_train": (cli.global_train_main, cuda + [
+            "--data_path", str(root / "data"), "--log_path", str(root / "logs_dp1_global"),
+            "--model_path", str(root / "w_dp1"), "--epoch_num", "1", "--attn_impl", "flash",
+            "--train_subset", "16", "--val_batches", "1"]),
+        "eval": (cli.eval_main, cuda + ["--data_path", str(root / "data_test"),
+                                        "--model_path", w, "--log_path", str(root / "logs_dp1")]),
+        "eval_big": (cli.eval_big_main, cuda + [
+            "--data_path", str(root / "data_test_big"), "--model_path", w,
+            "--log_path", str(root / "logs_dp1_big"), "--vis_max", "1"])}
+    for name, (fn, argv) in modes.items():
+        fa.reset_launch_counts()
+        wedge_cuda.reset_launch_counts()
+        res, _ = run_loop(fn, argv)
+        if name == "global_train":
+            res = np.load(root / "logs_dp1_global" / "loss_curve_exp_global_stage.npy")
+        out[name] = dict(result=res, launches={**wedge_cuda.launch_counts(),
+                                               **fa.launch_counts()})
+    return out
+
+
+def dp_ws2_args(root: Path, w: Path, tag: str):
+    gargs = get_args("global_train", argv=[
+        "--data_path", str(root / "data"), "--log_path", str(root / f"logs_{tag}_global"),
+        "--model_path", str(root / f"w_{tag}"), "--epoch_num", "1", "--attn_impl", "flash",
+        "--train_subset", "16", "--val_batches", "1"])
+    eargs = get_args("eval", argv=["--data_path", str(root / "data_test"), "--model_path", str(w)])
+    bargs = get_args("eval", big=True, argv=["--data_path", str(root / "data_test_big"),
+                                             "--model_path", str(w)])
+    return gargs, eargs, bargs
+
+
+def dp_paths(root: Path, w: Path, mesh=None, dev=None, only_global=False) -> dict:
+    """local_train (2 epochs, deterministic algorithms), global_train (one
+    short flash epoch: 2 steps, 1 val batch), run_eval (3 pairs) and
+    run_eval_big (1 pair, its maps) under ``mesh`` (a rank's) or in one
+    process on ``dev``."""
+    from blurry_edges_tpu_torch.train import local as tl
+    from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+
+    dev = mesh.device if mesh is not None else dev
+    tag = "dp2" if mesh is not None else "one"
+    gargs, eargs, bargs = dp_ws2_args(root, w, tag)
+    out = {}
+    if only_global:
+        gargs.log_path, gargs.model_path = gargs.log_path + "_again", gargs.model_path + "_again"
+    with deterministic_algorithms():
+        if not only_global:
+            out["local_train"] = run_loop(tl.run_local_training,
+                                          local_args(root / "data", root, tag), snapshot_every=0,
+                                          resume=False, device=dev, mesh=mesh)[0]["curve"]
+        run_loop(tg.run_global_training, gargs, device=dev, mesh=mesh)
+    out["global_train"] = np.load(Path(gargs.log_path) / "loss_curve_exp_global_stage.npy")
+    if only_global:
+        return out
+    with redirect_stdout(io.StringIO()):
+        mods = load_inference_modules(eargs, device=dev)
+        mods_big = load_inference_modules(bargs, big=True, device=dev)
+    out["eval"] = run_loop(pipe.run_eval, eargs, mods, device=dev, mesh=mesh)[0]
+    maps, vis = eval_maps_collector()
+    out["eval_big"] = run_loop(pipe_big.run_eval_big, bargs, mods_big, visualizer=vis,
+                               max_images=1, device=dev, mesh=mesh)[0]
+    out["big_maps"] = maps.get(0)
+    return out
+
+
+def local_first_step(root: Path, dev, mesh=None):
+    """The local trainer's first step (epoch 0's first batch, the trainer's
+    init) under ``mesh`` (each rank on its share of the global batch) or in
+    one process: (global loss, clipped gradients, update over lr)."""
+    from blurry_edges_tpu_torch.config import patch_from_args
+    from blurry_edges_tpu_torch.data.datasets import BatchIterator, ShapeDataset
+    from blurry_edges_tpu_torch.parallel import mesh as pm
+    from blurry_edges_tpu_torch.train import local as tl
+
+    mesh = mesh or pm.make_mesh(device=dev)
+    args = local_args(root / "data", root, "step")
+    ds = ShapeDataset(args.data_path, train=True, mode="local")
+    rows = pm.data_sharding(len(ds), mesh)
+    shard = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in ds.batch(np.arange(rows.start, rows.stop)).items()}
+    idx = next(iter(BatchIterator(len(ds), args.batch_size, shuffle=True, seed=tl.SEED)))
+    share = pm.data_sharding(args.batch_size, mesh)
+    batch = {k: v[share] for k, v in pm.gather_rows(shard, rows.start, idx, mesh).items()}
+    model, opt = tl.init_state(tl.SEED, args.learning_rate, dev)
+    before = [p.detach().clone() for p in model.parameters()]
+    step, _ = tl.make_step_fns(model, opt, patch_from_args(args), mesh)
+    with deterministic_algorithms():
+        loss = pm.all_reduce(step(batch, (0.0, 0.0)).clone(), mesh) / mesh.size
+    grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()]).double()
+    upd = torch.cat([((p.detach() - b) / args.learning_rate).flatten().cpu()
+                     for p, b in zip(model.parameters(), before)]).double()
+    return float(loss), grads, upd
+
+
+def global_first_step(root: Path, dev, mesh=None, trainer_init=False, seed=0):
+    """The global trainer's first step on the first batch of epoch 0's
+    shuffle from fresh_model's init (dropout 0, the generator scaled by
+    1/4: the well-conditioned start of the step comparisons) or, with
+    ``trainer_init``, from the trainer's own (init_state, dropout 0.1),
+    4 chunks of 2 (2 a rank under ``mesh``), dropout drawn from ``seed``:
+    (global loss, clipped gradients, update over lr)."""
+    from blurry_edges_tpu_torch.data.datasets import BatchIterator
+    from blurry_edges_tpu_torch.parallel import mesh as pm
+
+    mesh = mesh or pm.make_mesh(device=dev)
+    arrays = tg.load_global_compact(str(root / "data"), train=True, subset=16)
+    rows = pm.data_sharding(16, mesh)
+    shard = tg.to_device_batch({k: v[rows] for k, v in arrays.items()}, dev, bf16_tokens=True)
+    idx = next(iter(BatchIterator(16, BATCH, shuffle=True, seed=1898)))
+    share = pm.data_sharding(BATCH, mesh)
+    batch = {k: v[share] for k, v in pm.gather_rows(shard, rows.start, idx, mesh).items()}
+    if trainer_init:
+        model = GlobalStage(attn_impl="flash").to(dev)
+        tg.init_state(model, 1898, LR)
+    else:
+        model = fresh_model("flash", N_LAYERS, dev)
+    before = [p.detach().clone() for p in model.parameters()]
+    H = arrays["imgs_u8"].shape[2]
+    patch_cfg, grid = PatchConfig(), GridConfig(H=H, W=H)
+    step, _ = tg.make_step_fns(model, make_optimizer(model.parameters(), LR), patch_cfg, grid,
+                               DfDSolver.from_config(CamConfig(), patch_cfg),
+                               CHUNKS // mesh.size, mesh=mesh)
+    loss = float(step(batch, tg.gammas_to_array(GAMMAS, dev), seed))
+    grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()]).double()
+    upd = torch.cat([((p.detach() - b) / LR).flatten().cpu()
+                     for p, b in zip(model.parameters(), before)]).double()
+    return loss, grads, upd
+
+
+# the global trainer's first step's dropout seed (run_global_training)
+TRAINER_STEP_SEED = fold_in(fold_in(1898, 0), 0)
+
+
+def dp_ws2_rank(root: str, w: str) -> dict:
+    from blurry_edges_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(2)
+    out = dp_paths(Path(root), Path(w), mesh=mesh)
+    out["local_step"] = local_first_step(Path(root), mesh.device, mesh)
+    out["global_step"] = global_first_step(Path(root), mesh.device, mesh)
+    out["global_step_dropout"] = global_first_step(Path(root), mesh.device, mesh,
+                                                   trainer_init=True, seed=TRAINER_STEP_SEED)
+    return out
+
+
+@contextlib.contextmanager
+def rows_reversed():
+    """The trainers' batches with their rows in reverse order: the same
+    sums in another float order (the local stage has no dropout)."""
+    from blurry_edges_tpu_torch.data import datasets
+
+    base = datasets.BatchIterator
+
+    class Reversed(base):
+        def __iter__(self):
+            for idx in super().__iter__():
+                yield idx[::-1].copy()
+
+    datasets.BatchIterator = Reversed
+    try:
+        yield
+    finally:
+        datasets.BatchIterator = base
+
+
+def float_order_witnesses(root: Path, dev) -> dict:
+    """One process, changed only at float32's last bits: local_train (2
+    epochs) on batches whose rows are reversed, and the global trainer's
+    short flash epoch from its own init moved 1-2 ulps (each parameter
+    times 1 +- 2^-22, through --init_from). Their curves, for the drift
+    they show beside world size 2's."""
+    from blurry_edges_tpu_torch.train import local as tl
+    from blurry_edges_tpu_torch.train.checkpoint import save_checkpoint
+
+    with deterministic_algorithms(), rows_reversed():
+        local = run_loop(tl.run_local_training, local_args(root / "data", root, "rev"),
+                         snapshot_every=0, resume=False, device=dev)[0]["curve"]
+    gargs = dp_ws2_args(root, root, "ulp")[0]
+    model = GlobalStage(in_parameter_size=gargs.input_size,
+                        out_parameter_size=gargs.output_size)
+    tg.init_state(model, 1898, gargs.learning_rate)
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + 2.0 ** -22 * (2 * torch.randint(0, 2, p.shape, generator=g) - 1))
+    gargs.init_from = save_checkpoint(str(root / "w_ulp" / "init"), model.state_dict())
+    with deterministic_algorithms():
+        run_loop(tg.run_global_training, gargs, device=dev)
+    return dict(local_train=local,
+                global_train=np.load(Path(gargs.log_path) / "loss_curve_exp_global_stage.npy"))
+
+
+def run_dp_paths(root: Path, w: Path, dev) -> dict:
+    """Data parallelism on the card: world size 1 under NCCL through the
+    four modes' command lines, then world size 2 under gloo with both ranks
+    on cuda:0, each of its paths against one process on the same inputs
+    (both sides under deterministic algorithms): the global trainer's first
+    step as compare_steps holds the card's steps; the local trainer's first
+    step (loss to 1e-5, clipped gradients to a relative L2 error of 1e-2,
+    Adam's first update within 2e-3 of lr where the gradient is at least
+    0.1 of its RMS but for under 1e-5 of those entries: the loss's gradient
+    moves by ~3e-3 for a float32-level change of the CNN's output, as
+    between the two packages in tests/test_torch_train_local.py, and a rare
+    entry flips sign); both curves printed (one process repeats its global
+    curve bit for bit); run_eval's and run_eval_big's metrics within 1e-3
+    and the 587x587 maps as batched vs single serving. No speed is claimed:
+    one card."""
+    from blurry_edges_tpu_torch.parallel import launch
+
+    notes = {}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ws1 = launch(dp_ws1_rank, 1, backend="nccl", devices=["cuda:0"], args=(str(root), str(w)),
+                 timeout=600)[0]
+    notes["ws1_seconds"] = time.perf_counter() - t0
+    check(np.isfinite(ws1["local_train"]["result"]["curve"]).all()
+          and np.isfinite(ws1["global_train"]["result"]).all()
+          and all(math.isfinite(ws1[k]["result"][m]) for k in ("eval", "eval_big")
+                  for m in ("delta1", "rmse")), f"world size 1 under NCCL: {ws1}")
+    per_call = -(-N_BLOCKS // BLOCK_CHUNK)
+    want = {"eval": N_GEN_TEST + 1, "eval_big": (N_GEN_TEST_BIG + 1) * per_call}
+    for k, n in want.items():
+        got = ws1[k]["launches"]
+        check(got["wedge_colors"] == got["wedge_render"] == n,
+              f"world size 1 {k}: launches {got}, want {n} of each wedge kernel")
+    steps = 16 // BATCH
+    want_flash = {k: steps * STEP_LAUNCHES[k] + VAL_BATCH_LAUNCHES[k] for k in STEP_LAUNCHES}
+    got_flash = {k: ws1["global_train"]["launches"][k] for k in STEP_LAUNCHES}
+    check(got_flash == want_flash, f"world size 1 global_train flash {got_flash}, want {want_flash}")
+    notes["ws1"] = {k: v["launches"] for k, v in ws1.items()}
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        two = launch(dp_ws2_rank, 2, backend="gloo", devices=["cuda:0", "cuda:0"],
+                     args=(str(root), str(w)), timeout=900)
+    except RuntimeError as e:
+        raise CheckFailed(f"world size 2 under gloo on cuda:0 failed (a collective gloo "
+                          f"refuses on CUDA tensors shows in the rank's traceback): {e}")
+    notes["ws2_seconds"] = time.perf_counter() - t0
+    one = dp_paths(root, w, dev=dev)
+    agree = {}
+    for k in ("local_train", "global_train"):
+        a, b = two[0][k], one[k]
+        agree[k] = dict(max_rel=float(np.max(np.abs(a - b) / np.abs(b))), curve=a.tolist(),
+                        one=b.tolist())
+        check(np.isfinite(a).all() and a.shape == b.shape, f"world size 2 {k}: curve {a}")
+    # the curves drift over their few steps by float order (the ranks sum
+    # the chunks' gradients in another order) amplified by the losses'
+    # conditioning and Adam's sign-like first steps: printed, and each
+    # trainer's first step held. One process repeats its global curve bit
+    # for bit (as step 0's deterministic local runs)
+    again = dp_paths(root, w, dev=dev, only_global=True)["global_train"]
+    agree["global_train"]["one_repeats"] = bool(np.array_equal(again, one["global_train"]))
+    check(agree["global_train"]["one_repeats"], f"global_train one process: {again} then "
+          f"{one['global_train']}")
+    agree["global_step"] = compare_steps(two[0]["global_step"], global_first_step(root, dev),
+                                         "world size 2 global_train first step")
+    # the trainer's own init and first step, dropout on: the ranks draw the
+    # masks one process draws (a mask drawn from another seed moves the
+    # loss far beyond the limit: the control)
+    (la, ga, _), (lb, gb, _) = two[0]["global_step_dropout"], global_first_step(
+        root, dev, trainer_init=True, seed=TRAINER_STEP_SEED)
+    lc = global_first_step(root, dev, trainer_init=True, seed=TRAINER_STEP_SEED + 1)[0]
+    agree["global_step_dropout"] = dict(loss_rel=abs(la - lb) / abs(lb),
+                                        grad_rel_l2=((ga - gb).norm() / gb.norm()).item(),
+                                        other_seed_loss_rel=abs(lc - lb) / abs(lb))
+    check(agree["global_step_dropout"]["loss_rel"] < 1e-5
+          and agree["global_step_dropout"]["grad_rel_l2"] < 1e-2
+          and agree["global_step_dropout"]["other_seed_loss_rel"] > 1e-5,
+          f"world size 2 global_train first step, dropout on: {agree['global_step_dropout']}")
+    # the curves' drift beside one process's own under a float-order change
+    wit = float_order_witnesses(root, dev)
+    for k in ("local_train", "global_train"):
+        b = one[k]
+        agree[k]["witness_max_rel"] = float(np.max(np.abs(wit[k] - b) / np.abs(b)))
+        agree[k]["witness_curve"] = wit[k].tolist()
+    (la, ga, ua), (lb, gb, ub) = two[0]["local_step"], local_first_step(root, dev)
+    d = (ua - ub).abs()
+    clear = gb.abs() >= 0.1 * gb.square().mean().sqrt()
+    agree["local_step"] = dict(loss_rel=abs(la - lb) / abs(lb),
+                               grad_rel_l2=((ga - gb).norm() / gb.norm()).item(),
+                               apart_share=(d[clear] > 2e-3).double().mean().item(),
+                               clear_share=clear.double().mean().item())
+    check(agree["local_step"]["loss_rel"] < 1e-5 and agree["local_step"]["grad_rel_l2"] < 1e-2
+          and agree["local_step"]["apart_share"] < 1e-5 and d.max().item() <= 2.0,
+          f"world size 2 local_train first step: {agree['local_step']}")
+    for k in ("eval", "eval_big"):
+        diff = max(abs(two[0][k][m] - one[k][m]) for m in ("delta1", "delta2", "delta3",
+                                                            "rmse", "absrel"))
+        agree[k] = dict(max_metric_diff=diff, delta1=two[0][k]["delta1"])
+        check(diff < 1e-3 and two[1][k] is None, f"world size 2 {k}: {two[0][k]} vs {one[k]}")
+    for k, v in one["big_maps"].items():
+        dd = np.abs(two[0]["big_maps"][k] - v).ravel()
+        check(np.quantile(dd, 0.8) < 1e-3 and (dd > 0.01).mean() < 0.05,
+              f"world size 2 eval_big map {k}")
+    notes["ws2_vs_one"] = agree
+    return notes
 
 
 def main() -> int:
@@ -920,9 +1544,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
         return 2
+    # step 0's deterministic runs need it before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("setup: TF32 off for matmuls and cuDNN convolutions (float32 throughout)")
+    print("setup: TF32 off for matmuls and cuDNN convolutions (float32 throughout); "
+          f"CUBLAS_WORKSPACE_CONFIG={os.environ['CUBLAS_WORKSPACE_CONFIG']}")
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
@@ -1334,11 +1961,16 @@ def main() -> int:
     # test sets and evaluate them; each stage's launches counted from 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         gen_launches, gen_clock, gen_notes = run_datagen_path(Path(tmp), dev, grid, patch_cfg)
+    wedge_names = ("wedge_colors", "wedge_render")
     for stage in ("global_precal", "run_eval_None", "run_eval_w", "run_eval_big"):
-        launches_by_path[f"datagen_{stage}"] = {k: gen_launches[stage][k]
-                                                for k in ("wedge_colors", "wedge_render")}
+        launches_by_path[f"datagen_{stage}"] = {k: gen_launches[stage][k] for k in wedge_names}
+    par = gen_notes["parallel"]
+    launches_by_path["densify_pipeline"] = {k: gen_launches["densify_pipeline"][k]
+                                            for k in wedge_names}
+    launches_by_path["eval_dp"] = {k: par["ws1"]["eval"][k] for k in wedge_names}
+    launches_by_path["eval_big_dp"] = {k: par["ws1"]["eval_big"][k] for k in wedge_names}
     launches_train = {k: launches_train[k] + gen_launches["global_train"][k]
-                      for k in STEP_LAUNCHES}
+                      + par["ws1"]["global_train"][k] for k in STEP_LAUNCHES}
     errs["wedge_colors"] = max(errs["wedge_colors"],
                                gen_notes["precal_colors_vs_plain"]["max_abs"])
     print(f"datagen: gen_trainval {N_GEN_TRAIN}/{N_GEN_VAL} scenes (phases "
@@ -1357,6 +1989,40 @@ def main() -> int:
                       for k, v in gen_notes["scores"].items()) + " ok")
     print(f"time datagen stages (s, peak device memory): {gen_clock.line()} [{card}]")
     print(f"datagen launches by stage: {gen_launches}")
+    det = gen_notes["determinism"]
+    print("step 0, determinism: local_train 2 epochs twice each way: " + "; ".join(
+        f"{mode}: bit-identical {det[mode]['bit_identical']}, max |diff| "
+        f"{det[mode]['max_abs_diff']:.3g}, first differing {det[mode]['first_differing']}, "
+        f"val curves {det[mode]['val_curves']}" for mode in ("deterministic", "default"))
+        + f"; ops without a deterministic version: {det['ops_without_deterministic_version']} "
+        f"[{card}]")
+    f64 = gen_notes["cnn_float64"]
+    print(f"step 0, float32 local CNN vs float64 on the card (TF32 off), the chain's trained "
+          f"local stage over one precal batch: with cuDNN ({f64['cudnn']['patches']} patches) "
+          f"p99 {f64['cudnn']['p99']:.3g}, max {f64['cudnn']['max']:.3g}; cuDNN off "
+          f"({f64['no_cudnn']['patches']} patches) p99 {f64['no_cudnn']['p99']:.3g}, max "
+          f"{f64['no_cudnn']['max']:.3g} [{card}]")
+    den = gen_notes["densify"]
+    pipe_s = gen_clock.rows["densify_pipeline"]
+    print(f"densify: pipeline source {den['pipeline']['n_train']}/{den['pipeline']['n_val']} "
+          f"maps ({N_REAL_TRAIN}/{N_REAL_VAL} realistic), sparse maps in "
+          f"{den['pipeline']['sparse_seconds']:.2f} s, {DENSIFY_EPOCHS} epochs of "
+          f"{den['pipeline']['steps'] // DENSIFY_EPOCHS} steps at "
+          f"{np.round(den['pipeline']['epoch_seconds'], 3).tolist()} s, val "
+          f"{np.round(den['pipeline']['curve'], 6).tolist()}, the path {pipe_s[0]:.2f} s at peak "
+          f"{pipe_s[1]:.2f} GiB, launches {launches_by_path['densify_pipeline']}; simulated "
+          f"source 1 epoch {np.round(den['simulated']['epoch_seconds'], 3).tolist()} s, val "
+          f"{np.round(den['simulated']['curve'], 6).tolist()}; checkpoint served as densify pp; "
+          f"first 4 sparse maps card vs CPU {den['sparse_vs_cpu']}; U-Net step at 41x41 card "
+          f"vs CPU { {k: float(f'{v:.3g}') for k, v in den['unet_step_vs_cpu'].items()} } ok")
+    print(f"time densify: sparse maps/s by chunk "
+          f"{ {c: round(r, 3) for c, r in den['sparse_maps_per_s'].items()} } "
+          f"({SWEEP_PAIRS} pairs), train step at batch 8, 147x147 {den['train_step_ms']:.2f} ms "
+          f"(peak {den['train_step_peak_gib']:.2f} GiB) [{card}]")
+    print(f"parallel: world size 1 under NCCL through local_train, global_train, eval and "
+          f"eval_big ({par['ws1_seconds']:.1f} s with the rank's start), launches "
+          f"{par['ws1']}; world size 2 under gloo on cuda:0 ({par['ws2_seconds']:.1f} s) vs one "
+          f"process: {par['ws2_vs_one']} ok (no speed claimed: one card)")
 
     # 8. timings; the wedge kernels back to back (warm) and with the L2
     # cache flushed before each launch (cold: on the serving path the local
@@ -1562,7 +2228,8 @@ def main() -> int:
             launches=launches_train[name],
             launches_by_path={"train": calls["train"]["flash"][name],
                               "resume": calls["resume"]["flash"][name],
-                              "datagen_global_train": gen_launches["global_train"][name]},
+                              "datagen_global_train": gen_launches["global_train"][name],
+                              "global_train_dp": par["ws1"]["global_train"][name]},
             max_abs_err=errs[name], ms=f_ms[name], plain_ms=f_plain[name],
             bound_ms=bound, bound_by=bound_by, bound_fp32_ms=f_bound[name]["fp32"][0],
             library_ms=f_lib[name]))

@@ -11,10 +11,18 @@ Stages, in order (``--stages`` picks some):
   every stage's host peak: PyTorch's CUDA libraries);
 - ``gen_trainval``: 8,000 train and 2,000 val scenes (``--n_train``,
   ``--n_val``) under ``<out>/data``;
+- ``cnn_float64``: the local stage of ``--weights`` in float32 against
+  the same module in float64 over the first 8 train pairs' 65,536
+  patches (``chip_smoke.py::cnn_float64_reading``);
 - ``global_precal``: their tokens through the local stage of ``--weights``
   (``pretrained_local_stage.pth`` or ``best_run_exp_local_stage.pth``);
 - ``global_train``: one epoch of the global trainer on those tokens, batch
   8, flash attention, into ``<out>/w_global``;
+- ``densify_train``: the depth-completion U-Net's trainer with
+  ``--pipeline`` (sparse maps of the local and global stages of
+  ``--weights`` over the first 1,500 train and 300 val scenes, the
+  command line's cap) for ``--densify_epochs`` epochs (the command line's
+  own 100 cut), into ``<out>/w_densify``;
 - ``gen_test`` / ``gen_test_big``: 200 pairs at 147x147 and 60 at 587x587
   (``--n_test``, ``--n_test_big``);
 - ``eval_none``, ``eval_w``, ``eval_pp``, ``eval_big``: the evaluations of
@@ -42,8 +50,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-STAGES = ("cuda_baseline", "gen_trainval", "global_precal", "global_train", "gen_test",
-          "gen_test_big", "eval_none", "eval_w", "eval_pp", "eval_big")
+STAGES = ("cuda_baseline", "gen_trainval", "cnn_float64", "global_precal", "global_train",
+          "densify_train", "gen_test", "gen_test_big", "eval_none", "eval_w", "eval_pp",
+          "eval_big")
 MARK = "STAGE_RESULT "
 
 
@@ -63,6 +72,12 @@ def stage_argv(stage: str, a) -> list:
                                           str(out / "w_global"), "--log_path",
                                           str(out / "logs_global"), "--epoch_num", "1",
                                           "--attn_impl", "flash"]
+    if stage == "cnn_float64":
+        return ["cnn_float64", w, str(out / "data")]
+    if stage == "densify_train":
+        return ["densify_train", "--pipeline", "--densify_epochs", str(a.densify_epochs)] + cuda + [
+            "--data_path", str(out / "data"), "--model_path", w,
+            "--log_path", str(out / "logs_densify")]
     if stage in ("gen_test", "gen_test_big"):
         big = ["--big"] if stage == "gen_test_big" else []
         n = a.n_test_big if big else a.n_test
@@ -87,6 +102,23 @@ def run_one(argv: list) -> None:
 
     if argv[0] == "cuda_baseline":      # what a process holds once it has the card
         result = torch.ones(1, device="cuda").sum().item()
+    elif argv[0] == "cnn_float64":
+        from blurry_edges_tpu_torch.config import GridConfig
+        from chip_smoke import cnn_float64_reading
+
+        result = cnn_float64_reading(Path(argv[1]), Path(argv[2]), GridConfig(),
+                                     torch.device("cuda", 0))
+        print(result, flush=True)
+    elif argv[0] == "densify_train":      # the mode's 100 epochs cut to --densify_epochs
+        import functools
+
+        from blurry_edges_tpu_torch.train import densify
+
+        j = argv.index("--densify_epochs")
+        epochs, argv = int(argv[j + 1]), argv[:j] + argv[j + 2:]
+        densify.run_densify_training = functools.partial(densify.run_densify_training,
+                                                         epochs=epochs)
+        result = cli.MODES[argv[0]](argv[1:])
     else:
         result = cli.MODES[argv[0]](argv[1:])
     torch.cuda.synchronize()
@@ -110,6 +142,7 @@ def main() -> int:
     p.add_argument("--n_val", type=int, default=2000)
     p.add_argument("--n_test", type=int, default=200)
     p.add_argument("--n_test_big", type=int, default=60)
+    p.add_argument("--densify_epochs", type=int, default=3)
     a = p.parse_args()
     import torch
 

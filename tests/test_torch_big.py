@@ -157,7 +157,8 @@ def test_run_eval_big_scores_and_excludes(small_big, tmp_path, monkeypatch, caps
     want = np.round(eval_depth(maps[1], ds[0][1][None], maps[1] > 0, crop=10), 3)
     npt.assert_allclose(lines[0], want, atol=1.5e-3)
     assert np.isfinite([res[k] for k in ("delta1", "rmse", "absrel")]).all()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # two data-parallel devices need two ranks, which parallel.launch starts
+    with pytest.raises(RuntimeError, match="2 ranks"):
         args.dp_devices = 2
         big.run_eval_big(args, mods, device="cpu")
 

@@ -464,3 +464,74 @@ def test_precal_tokens_card_vs_cpu(dev):
         colors = wedge_cuda.wedge_colors(params, flat, PATCH)
         plain = wedge_cuda.wedge_colors_plain(params, flat, PATCH)
     torch.testing.assert_close(colors, plain, rtol=2e-3, atol=2e-4)
+
+
+def unet_step(device, sparse, target, dtype=torch.float32):
+    """One densify train step with gradient matching of the trainer's fresh
+    U-Net (Flax's default init from its seed) in ``dtype``: loss, clipped
+    gradients, update over lr, running statistics."""
+    from blurry_edges_tpu_torch.models.unet import UNet
+    from blurry_edges_tpu_torch.train import densify as td
+    from blurry_edges_tpu_torch.train.optim import flax_default_init, make_optimizer
+
+    model = UNet()
+    flax_default_init(model, torch.Generator().manual_seed(td.SEED))
+    model.to(device=device, dtype=dtype)
+    opt = make_optimizer(model.parameters(), 1e-4)
+    before = [p.detach().clone() for p in model.parameters()]
+    step, _ = td.make_steps(model, opt, grad_loss_w=0.5)
+    loss = float(step(sparse[:, None].to(device, dtype), target.to(device, dtype)))
+    grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()]).double()
+    upd = torch.cat([((p.detach() - b) / 1e-4).flatten().cpu()
+                     for p, b in zip(model.parameters(), before)]).double()
+    stats = torch.cat([b.flatten().cpu() for n, b in model.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))]).double()
+    return loss, grads, upd, stats
+
+
+def test_unet_train_step_card_vs_cpu(dev):
+    """One densify train step at 41x41, batch 2, from the same init: the
+    card's float64 step is the CPU's (loss to 1e-10, gradient to 1e-8);
+    the card's float32 step (cuDNN, TF32 off) against the CPU's float64:
+    the loss to rtol 1e-4, the running statistics to the CPU's float32
+    ones to 1e-5, and Adam's first update within 2e-3 of lr wherever the
+    float64 gradient lies 10x beyond both float32 gradients' distance to
+    it and at least 100 Adam eps (over half the entries)."""
+    g = torch.Generator().manual_seed(21)
+    target = torch.rand((2, 41, 41), generator=g) * 0.43 + 0.75
+    sparse = torch.where(torch.rand(target.shape, generator=g) < 0.4, target, 0.0)
+    (lc, gc, uc, sc), (lp, gp, up, sp) = unet_step(dev, sparse, target), unet_step("cpu", sparse,
+                                                                                   target)
+    lr, gr, ur, _ = unet_step("cpu", sparse, target, torch.float64)
+    l64, g64, _, _ = unet_step(dev, sparse, target, torch.float64)
+    assert abs(l64 - lr) < 1e-10 * abs(lr) and (g64 - gr).norm() < 1e-8 * gr.norm()
+    assert abs(lc - lr) < 1e-4 * abs(lr)
+    assert (sc - sp).abs().max().item() < 1e-5
+    clear = (gr.abs() > 10 * torch.maximum((gc - gr).abs(), (gp - gr).abs())) & (gr.abs() >= 1e-6)
+    d = (uc - ur).abs()
+    assert clear.double().mean() > 0.5 and d[clear].max() < 2e-3 and d.max() <= 2.0
+
+
+def test_world_size_1_nccl_eval(dev, tmp_path):
+    """eval through its data-parallel path in one rank under NCCL (the
+    CLI's mode run inside parallel.launch) gives one process's metrics,
+    and its launches are the rank's."""
+    from blurry_edges_tpu_torch import cli
+    from blurry_edges_tpu_torch.parallel import launch
+
+    mods = random_modules(torch.Generator().manual_seed(4), "cpu")
+    torch.save(mods.local_model.state_dict(), tmp_path / "best_run_exp_local_stage.pth")
+    torch.save(mods.global_model.state_dict(), tmp_path / "best_run_exp_global_stage.pth")
+    rng = np.random.default_rng(2)
+    data = tmp_path / "t"
+    data.mkdir()
+    np.save(data / "images_ny.npy", rng.integers(0, 190, (3, 2, 41, 41, 3)).astype(np.uint8))
+    np.save(data / "depth_maps.npy", rng.uniform(0.75, 1.18, (3, 41, 41)).astype(np.float32))
+    np.save(data / "alphas.npy", np.full(3, 190.0, np.float32))
+    argv = ["--cuda", "cuda:0", "--img_size", "41", "41", "--data_path", str(data),
+            "--model_path", str(tmp_path), "--log_path", str(tmp_path / "logs"), "--vis_max", "1"]
+    one = cli.eval_main(argv)
+    two = launch(cli.eval_main, 1, backend="nccl", devices=["cuda:0"], args=(argv,),
+                 timeout=300)[0]
+    for k in ("delta1", "delta2", "delta3", "rmse", "absrel"):
+        assert abs(two[k] - one[k]) < 1e-6, k

@@ -124,6 +124,12 @@ def test_chain_on_the_cpu(tmp_path, capsys):
 
 
 def test_local_train_refuses_data_parallel(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["local_train", "--cuda", "cpu", "--dp_devices", "2",
-                  "--data_path", str(tmp_path)])
+    """Two data-parallel devices outside a rank: the trainer refuses rather
+    than train on one (the CLI starts the ranks, parallel.launch); on CUDA
+    the CLI refuses more ranks than visible cards."""
+    args = get_args("local_train", argv=["--dp_devices", "2", "--data_path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="2 ranks"):
+        local.run_local_training(args, device="cpu")
+    with pytest.raises(SystemExit, match="CUDA devices"):
+        cli.main(["local_train", "--cuda", "cuda:0", "--dp_devices",
+                  str(torch.cuda.device_count() + 2), "--data_path", str(tmp_path)])

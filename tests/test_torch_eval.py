@@ -222,8 +222,10 @@ def test_run_eval_excludes_empty_predictions(monkeypatch, capsys, tmp_path):
 
 
 def test_dp_devices_is_not_ported(tmp_path):
+    """--dp_devices 2 outside a rank: run_eval does not fall back to one
+    device; the ranks are processes (the CLI starts them, parallel.launch)."""
     args = eval_args(tmp_path, dp_devices=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(RuntimeError, match="2 ranks"):
         pipe.run_eval(args, modules=None, device="cpu")
 
 
