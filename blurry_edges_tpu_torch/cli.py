@@ -136,7 +136,10 @@ def gen_trainval_main(argv: Optional[list] = None) -> dict:
 def gen_test_main(argv: Optional[list] = None) -> None:
     """A realistic layered-defocus test set; --big for 587x587, written to
     the data path with ``data_test`` read as ``data_test_big`` (reference
-    test_data_generator.py). --coco raises NotImplementedError."""
+    test_data_generator.py). --coco takes MS-COCO foregrounds
+    (``--frgd_path``: instances_val2017.json, val2017/) over Painting
+    backgrounds (``--bkgd_path``); its JPEGs are decoded by nvJPEG on a
+    card and by OpenCV on the CPU."""
     from .config import get_args
     from .data.realistic_gen import SyntheticRealisticDataGenerator
 

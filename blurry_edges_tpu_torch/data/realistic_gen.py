@@ -1,5 +1,5 @@
-"""Realistic-texture test sets (the JAX package's ``data/realistic_gen.py``,
-its procedural source; reference test_data_generator.py:10-176).
+"""Realistic-texture test sets (the JAX package's ``data/realistic_gen.py``;
+reference test_data_generator.py:10-176).
 
 A test pair is a textured foreground ellipse over a textured background,
 each on its own random depth plane, rendered through layered defocus: for
@@ -17,9 +17,15 @@ dropped and the rest renormalised), built here as two weight matrices;
 ``F.interpolate(mode="bicubic")`` (a = -0.75, clamped edges) computes
 another function.
 
-The reference's MS-COCO/Painting source (``--coco``) is not ported: it
-needs MS-COCO's ``instances_val2017.json`` and ``val2017/`` images, a
-Painting folder and OpenCV, none of which the repository holds.
+The MS-COCO/Painting source (``--coco``, reference :26-79): MS-COCO
+instance masks and their objects over Painting backgrounds, picked as the
+JAX package picks them. Its draws come from a ``random.Random(seed)``
+(foregrounds) and an ``np.random.RandomState(seed)`` (backgrounds) in place
+of Python's and numpy's global generators, in the JAX loader's order:
+every foreground, then every background. Images are decoded on the
+device (``utils/imageio.py``: nvJPEG on a card); the masks' connected
+components are counted on the host; the object, the resize
+(``ops/resize.py``, OpenCV's bilinear) and the crop run on the device.
 """
 
 from __future__ import annotations
@@ -27,12 +33,15 @@ from __future__ import annotations
 import functools
 import math
 import os
+import random
 
 import numpy as np
 import torch
 
 from ..config import CamConfig
 from ..ops import optics
+from ..ops.resize import resize_linear_u8
+from ..utils import imageio
 from ..utils.device import float32_precision, resolve_device
 from .shapes_gen import add_photon_noise
 
@@ -202,22 +211,136 @@ def synth_from_draws(draws: dict, H: int, W: int, z_lo: float, z_hi: float,
     return img, depth
 
 
+def draw_planes(g: torch.Generator) -> dict:
+    """A COCO sample's draws (the JAX package's ``_coco_layers``): the
+    relative depths (4,) descending and two angles in [0, 2 pi), as
+    ``draw_sample`` draws them."""
+    u = lambda *shape: torch.rand(shape, generator=g, device=g.device)   # noqa: E731
+    return dict(rel=torch.sort(u(4), descending=True).values, angles=u(2) * (2 * math.pi))
+
+
+def coco_from_draws(draws: dict, frgd_mask, frgd_obj, bkgd_obj, z_lo: float, z_hi: float,
+                    cam: CamConfig, mag: float, K: int, n_interval: int = 150):
+    """One COCO test sample from its depth planes' draws, on their device:
+    ``frgd_mask`` (H, W) bool, ``frgd_obj`` and ``bkgd_obj`` (H, W, 3) in
+    [0, 255]. Returns (img (2, H, W, 3), depth (H, W))."""
+    H, W = frgd_mask.shape
+    d_bk, d_fg, d_bk_n, d_fg_n = planar_depths(draws["rel"], draws["angles"], H, W, z_lo, z_hi)
+    depth = (z_hi - z_lo) * torch.where(frgd_mask, d_fg_n, d_bk_n) + z_lo
+    img = render_image(d_bk, d_fg, frgd_mask, bkgd_obj.float(), frgd_obj.float(), cam, mag, K,
+                       n_interval)
+    return img, depth
+
+
+def _scaled_crop(a, image_size):
+    """The JAX loader's resize and centre crop: the shorter side scaled to
+    max(image_size), sizes by ``int(round(...))``, then the centred (H, W)."""
+    H, W = image_size
+    scale = max(image_size) / min(a.shape[:2])
+    a = resize_linear_u8(a, int(round(a.shape[1] * scale)), int(round(a.shape[0] * scale)))
+    cy, cx = a.shape[0] // 2, a.shape[1] // 2
+    return a[cy - H // 2:cy - H // 2 + H, cx - W // 2:cx - W // 2 + W]
+
+
+def _require(path: str, kind: str) -> None:
+    ok = os.path.isdir(path) if kind == "folder" else os.path.isfile(path)
+    if not ok:
+        raise FileNotFoundError(f"the --coco test set needs {path} ({kind} not found)")
+
+
+def check_coco_paths(args) -> None:
+    """FileNotFoundError naming the first of MS-COCO's annotations, its
+    val2017 folder and the Painting folder that is missing."""
+    _require(f"{args.frgd_path}instances_val2017.json", "file")
+    _require(f"{args.frgd_path}val2017", "folder")
+    _require(args.bkgd_path, "folder")
+
+
+def load_coco_foregrounds(args, image_size, n: int, rand: random.Random, device="cuda",
+                          imread=imageio.imread):
+    """n MS-COCO instance masks and their objects (reference
+    test_data_generator.py:26-68, the JAX package's loader): a category,
+    an image of it and one of its annotations drawn from ``rand`` until
+    the annotation's ``area`` field is at least 40,000, its mask is one
+    component by ``scipy.ndimage.label``'s default (4-connected)
+    structure, and its image decodes; the object is the
+    image times the mask in uint8, both resized and centre-cropped.
+    Returns (masks (n, H, W) bool, objects (n, H, W, 3) uint8) on
+    ``device``. ``imread(path, device)`` decodes (``utils/imageio.py``)."""
+    from scipy.ndimage import label
+
+    from .coco import open_coco
+
+    dev = resolve_device(device)
+    H, W = image_size
+    masks = torch.zeros((n, H, W), dtype=torch.bool, device=dev)
+    objs = torch.zeros((n, H, W, 3), dtype=torch.uint8, device=dev)
+    coco = open_coco(f"{args.frgd_path}instances_val2017.json")
+    cat_names = [c["name"] for c in coco.loadCats(coco.getCatIds())]
+    for i in range(n):
+        while True:
+            cat = rand.choice(cat_names)
+            cat_id = coco.getCatIds(catNms=cat)
+            img_ids = coco.getImgIds(catIds=cat_id)
+            if not img_ids:
+                continue
+            img_id = rand.choice(img_ids)
+            ann = rand.choice(coco.loadAnns(coco.getAnnIds(img_id, catIds=cat_id)))
+            if ann["area"] < 40000:
+                continue
+            mask = coco.annToMask(ann)
+            if label(mask)[1] != 1:
+                continue
+            path = f"{args.frgd_path}val2017/{coco.loadImgs(img_id)[0]['file_name']}"
+            arr = imread(path, dev)
+            if arr is None:
+                continue
+            if tuple(arr.shape[:2]) != mask.shape:
+                raise ValueError(f"{path}: decoded as {tuple(arr.shape[:2])}, its annotation "
+                                 f"says {mask.shape} (height, width)")
+            mask_t = torch.from_numpy(mask).to(dev)
+            masks[i] = _scaled_crop(mask_t, image_size) != 0
+            objs[i] = _scaled_crop(arr * mask_t[..., None], image_size)
+            break
+    return masks, objs
+
+
+def load_painting_backgrounds(args, image_size, n: int, rng: np.random.RandomState,
+                              device="cuda", imread=imageio.imread):
+    """n Painting backgrounds (reference test_data_generator.py:70-79): a
+    file of ``os.listdir(bkgd_path)``, in its order, drawn by
+    ``rng.randint``, resized and centre-cropped. (n, H, W, 3) uint8 on
+    ``device``."""
+    dev = resolve_device(device)
+    H, W = image_size
+    files = os.listdir(args.bkgd_path)
+    out = torch.zeros((n, H, W, 3), dtype=torch.uint8, device=dev)
+    for i in range(n):
+        path = f"{args.bkgd_path}{files[rng.randint(len(files))]}"
+        arr = imread(path, dev)
+        if arr is None:
+            raise ValueError(f"{path}: not a PNG or JPEG image")
+        out[i] = _scaled_crop(arr, image_size)
+    return out
+
+
 class SyntheticRealisticDataGenerator:
     """Writes a test set in the reference's layout (reference
     test_data_generator.py:138-164): images_gt.npy and images_ny.npy (n, 2,
     H, W, 3), depth_maps.npy (n, H, W), alphas.npy (n,), float32, the
     arrays through ``open_memmap``. ``big`` takes ``--big_img_size``.
     Sample draws come from a CPU ``torch.Generator`` (the same scenes on
-    every device), the alphas and the noise from one on ``device``."""
+    every device), the alphas and the noise from one on ``device``.
+    ``source="coco"`` takes MS-COCO foregrounds and Painting backgrounds
+    from ``--frgd_path`` and ``--bkgd_path``, picked with generators seeded
+    by ``seed``; a missing file or folder raises ``FileNotFoundError``
+    here, before anything is written."""
 
     def __init__(self, args, big: bool = False, source: str = "synthetic",
                  n_interval: int = 150, seed: int = 1869, device="cuda"):
         if source == "coco":
-            raise NotImplementedError(
-                f"--coco is not ported: it needs MS-COCO's annotations and images "
-                f"({args.frgd_path}instances_val2017.json, {args.frgd_path}val2017/), a "
-                f"Painting folder ({args.bkgd_path}) and OpenCV; the procedural source is "
-                f"the default")
+            check_coco_paths(args)
+        self.source, self.seed = source, seed
         self.device = resolve_device(device)
         self.args = args
         self.H, self.W = args.big_img_size if big else args.img_size
@@ -238,14 +361,24 @@ class SyntheticRealisticDataGenerator:
             os.path.join(a.data_path, f"{name}.npy"), mode="w+", dtype=np.float32, shape=shape)
         images_gt, images_ny = mm("images_gt", (n, 2, H, W, 3)), mm("images_ny", (n, 2, H, W, 3))
         depth_maps = mm("depth_maps", (n, H, W))
+        if self.source == "coco":
+            masks, fgs = load_coco_foregrounds(a, (H, W), n, random.Random(self.seed),
+                                               self.device)
+            bgs = load_painting_backgrounds(a, (H, W), n, np.random.RandomState(self.seed),
+                                            self.device)
         alphas = (torch.rand(n, generator=self.noise_gen, device=self.device)
                   * float(a.alpha[1] - a.alpha[0]) + float(a.alpha[0]))
         for i in range(n):
-            draws = draw_sample(self.scene_gen)
+            draws = (draw_planes if self.source == "coco" else draw_sample)(self.scene_gen)
             draws = {k: ([t.to(self.device) for t in v] if isinstance(v, list)
                          else v.to(self.device)) for k, v in draws.items()}
-            img, depth = synth_from_draws(draws, H, W, self.z_lo, self.z_hi, self.cam,
-                                          self.mag, self.K, self.n_interval)
+            if self.source == "coco":
+                img, depth = coco_from_draws(draws, masks[i], fgs[i], bgs[i], self.z_lo,
+                                             self.z_hi, self.cam, self.mag, self.K,
+                                             self.n_interval)
+            else:
+                img, depth = synth_from_draws(draws, H, W, self.z_lo, self.z_hi, self.cam,
+                                              self.mag, self.K, self.n_interval)
             gt, ny = add_photon_noise(img[None], alphas[i:i + 1], a.sigma, self.noise_gen)
             images_gt[i], images_ny[i] = gt[0].cpu().numpy(), ny[0].cpu().numpy()
             depth_maps[i] = depth.cpu().numpy()

@@ -37,6 +37,7 @@ from ..ops import optics
 from ..ops.morphology import dilate_full, dilate_full_n, distance_transform_l1
 from ..ops.sobel import image_derivative
 from ..utils.device import float32_precision, resolve_device
+from ..utils.imageio import imwrite_png
 
 # the JAX command line's seed of this mode (its cli.py:124)
 SEED = 1869
@@ -231,14 +232,17 @@ class SyntheticShapeDataGenerator:
     ``device``, ``device_batch`` scenes at a time. Scene draws come from a
     CPU ``torch.Generator`` (the same scenes on every device), noise draws
     from one on ``device``, both seeded with ``SEED``; the patch choice
-    from ``np.random.RandomState(SEED)``."""
+    from ``np.random.RandomState(SEED)``. ``previews`` writes PNG previews
+    of the first 20 scenes of each split (reference :147-157), off by
+    default as in the JAX package."""
 
     ARRAYS = (("images_aif", "img_aif"), ("boundary_locations", "boundary_loc"),
               ("image_depths", "image_depth"), ("boundary_depths", "boundary_depth"),
               ("boundary_distances", "boundary_dist"), ("derivative_maps", "deri"))
 
-    def __init__(self, args, device="cuda", device_batch: int = 50):
+    def __init__(self, args, device="cuda", device_batch: int = 50, previews: bool = False):
         self.device = resolve_device(device)
+        self.previews = previews
         self.cfg = ShapeGenConfig(
             H=args.img_size[0], W=args.img_size[1], R=args.R,
             num_shape_lo=args.num_shape[0], num_shape_hi=args.num_shape[1],
@@ -281,6 +285,24 @@ class SyntheticShapeDataGenerator:
             self.images[s:s + b] = batch["imgs"].to(torch.uint8).cpu().numpy()
         for arr in out.values():
             arr.flush()
+        if self.previews:
+            self._write_previews(part, out)
+
+    def _write_previews(self, part: str, out: dict) -> None:
+        """aif_i, boundary_i, depth_i and clean_i_ii PNGs of the first 20
+        scenes in ``<data_path>/<part>/``, with the JAX package's uint8
+        casts and depth scaling (its ``cv2.imwrite`` calls)."""
+        vis = os.path.join(self.data_path, part)
+        os.makedirs(vis, exist_ok=True)
+        lo = 1.25 * self.cfg.z_lo - 0.25 * self.cfg.z_hi
+        rng = 1.25 * (self.cfg.z_hi - self.cfg.z_lo)
+        png = lambda name, a: imwrite_png(os.path.join(vis, f"{name}.png"), a)   # noqa: E731
+        for i in range(min(20, self.images.shape[0])):
+            png(f"aif_{i}", (out["images_aif"][i] * 255).astype(np.uint8))
+            png(f"boundary_{i}", out["boundary_locations"][i].astype(np.uint8))
+            png(f"depth_{i}", (((out["image_depths"][i] - lo) / rng) * 255).astype(np.uint8))
+            for ii in range(2):
+                png(f"clean_{i}_{ii}", self.images[i, ii])
 
     def add_noise(self, train: bool = True) -> None:
         cfg = self.cfg

@@ -24,8 +24,12 @@ command line's modes: generates train/val scenes, trains the local stage
 for two epochs and resumes it for a third, precalculates the global
 stage's tokens with it (the wedge_colors kernel, one launch a device batch
 of 8 pairs), trains the global stage on those tokens, generates 147x147
-and 587x587 test sets and evaluates them with the weights it trained. It
-checks the outputs (shapes, finite values,
+and 587x587 test sets and evaluates them with the weights it trained; then (phase
+7c) reads the committed fake MS-COCO / Painting fixture: decodes its JPEGs
+with nvJPEG against OpenCV's pixels, generates --coco test sets at
+147x147 and 587x587 through the command line, holds the loader's masks,
+objects and backgrounds on the card to the CPU's, and evaluates the sets.
+It checks the outputs (shapes, finite values,
 the launch counts of each path, the bfloat16 estimator against the
 float32 chain on its networks' outputs, flash against matmul attention,
 the card against the CPU at small sizes; the generated arrays' shapes,
@@ -695,17 +699,19 @@ def noise_bias(gt, ny, alpha):
     return d.mean() / se
 
 
-def check_noisy(what, gt, ny, alpha, shape):
+def check_noisy(what, gt, ny, alpha, shape, clean_le_alpha: bool = True):
     """Shapes, float32, integer noisy counts in [0, round(alpha)] (clipped
-    to alpha, then rounded), clean counts in [0, alpha], shot noise without
-    bias (its mean within 4 standard errors of 0)."""
+    to alpha, then rounded), clean counts in [0, alpha] (or, without
+    ``clean_le_alpha``, at least 0), shot noise without bias (its mean
+    within 4 standard errors of 0)."""
     a = alpha.reshape((-1,) + (1,) * (gt.ndim - 1))
     check(gt.shape == ny.shape == shape and gt.dtype == ny.dtype == np.float32,
           f"{what}: shapes {gt.shape} {ny.shape}, want {shape} float32")
     check(((alpha >= 180) & (alpha < 200)).all(), f"{what}: alphas outside [180, 200)")
     check((ny == np.round(ny)).all() and ny.min() >= 0 and (ny <= np.round(a)).all(),
           f"{what}: noisy counts not integers in [0, round(alpha)]")
-    check(gt.min() >= 0 and (gt <= a + 1e-3).all(), f"{what}: clean counts outside [0, alpha]")
+    check(gt.min() >= 0 and (not clean_le_alpha or (gt <= a + 1e-3).all()),
+          f"{what}: clean counts outside [0, alpha]")
     z = noise_bias(gt, ny, alpha)
     check(abs(z) < 4, f"{what}: shot noise biased by {z:.2f} standard errors")
     return z
@@ -739,10 +745,10 @@ def check_generated_trainval(data: Path, H: int) -> dict:
     return zs
 
 
-def check_generated_test(path: Path, n: int, H: int) -> float:
+def check_generated_test(path: Path, n: int, H: int, clean_le_alpha: bool = True) -> float:
     ld = lambda name: np.load(path / f"{name}.npy")                   # noqa: E731
     z = check_noisy(f"gen_test {path.name}", ld("images_gt"), ld("images_ny"), ld("alphas"),
-                    (n, 2, H, H, 3))
+                    (n, 2, H, H, 3), clean_le_alpha)
     depth = ld("depth_maps")
     check(depth.shape == (n, H, H) and depth.min() >= Z_RANGE[0]
           and depth.max() <= Z_RANGE[1] + 1e-6, f"gen_test {path.name}: depths")
@@ -922,11 +928,187 @@ def run_datagen_path(root: Path, dev, grid: GridConfig, patch_cfg: PatchConfig):
     scores["run_eval_big"] = res
     notes["scores"] = scores
     del mods
+    notes["coco"] = run_coco_path(root, w, dev, counted, read)
     notes["densify"] = run_densify_path(root, data, w, dev, grid, patch_cfg, counted, read)
     print(f"densify notes: {notes['densify']}", flush=True)
     notes["parallel"] = run_dp_paths(root, w, dev)
     return launches, clock, notes
 
+
+
+# --------------------------------------------------------------- the COCO source (7c)
+
+# the committed fake MS-COCO / Painting fixture (make_coco_fixture.py); 4
+# pairs at 147x147 and 2 at 587x587; nvJPEG's decodes against OpenCV's
+# within bounds set from the first card run of this phase (PERF.md: at
+# most 3 levels, 0.0183 on average, the IDCT's rounding through the
+# colour conversion, on an H100 80GB HBM3 at 700 W)
+COCO_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "coco_fixture"
+N_COCO, N_COCO_BIG, COCO_SEED = 4, 2, 1869
+NVJPEG_MAX_ABS, NVJPEG_MEAN_ABS = 4, 0.05
+
+
+def coco_decode_reading(dev) -> dict:
+    """Every fixture JPEG decoded on the card (nvJPEG's YCbCr planes through
+    libjpeg's upsampling and colour conversion, the path the loader takes)
+    against OpenCV's decode (decoded_cv2/), max and mean |diff| per image,
+    held to the bounds; every PNG bit for bit against OpenCV's (its SHA-256); one warm 640x480
+    decode timed (CUDA events over 20 decodes, each ending in a stream
+    synchronize)."""
+    import hashlib
+
+    from blurry_edges_tpu_torch.utils import imageio
+
+    out = {"jpeg": {}, "png": {}}
+    for path in sorted(COCO_FIXTURE.glob("coco/val2017/*.jpg")) + sorted(
+            COCO_FIXTURE.glob("painting/*.jpg")):
+        tag = "val2017" if "val2017" in str(path) else "painting"
+        want = imageio.decode_png((COCO_FIXTURE / "decoded_cv2" / f"{tag}_{path.stem}.png")
+                                  .read_bytes()).astype(np.int16)
+        got = imageio.imread(str(path), dev)
+        check(tuple(got.shape) == want.shape, f"nvJPEG {path.name}: shape {tuple(got.shape)}, "
+                                               f"OpenCV {want.shape}")
+        d = np.abs(got.cpu().numpy().astype(np.int16) - want)
+        out["jpeg"][f"{tag}/{path.name}"] = dict(max=int(d.max()),
+                                                  mean=round(float(d.mean()), 5))
+        check(d.max() <= NVJPEG_MAX_ABS and d.mean() <= NVJPEG_MEAN_ABS,
+              f"nvJPEG {path.name} vs OpenCV: max {d.max()}, mean {d.mean():.4f}")
+    hashes = json.loads((COCO_FIXTURE / "decoded_cv2" / "png_sha256.json").read_text())
+    for key, (shape, digest) in hashes.items():
+        folder = "coco/val2017" if key.startswith("val2017") else "painting"
+        got = imageio.imread(str(COCO_FIXTURE / folder / key.split("/")[1]), dev).cpu().numpy()
+        out["png"][key] = list(got.shape) == shape and hashlib.sha256(
+            got.tobytes()).hexdigest() == digest
+        check(out["png"][key], f"PNG {key} not OpenCV's pixels")
+    data = (COCO_FIXTURE / "coco" / "val2017" / "000000000001.jpg").read_bytes()
+    out["decode_640x480_ms"] = cuda_ms(lambda: imageio.decode_jpeg(data, dev, "640x480"), 20)
+    return out
+
+
+def run_coco_path(root: Path, w: Path, dev, counted, read) -> dict:
+    """Phase 7c: the --coco test-set source on the card. Decode (above); the
+    command line's gen_test --coco at 147x147 and --big --coco at 587x587 on
+    the fixture, checked as the procedural sets are; the loader's masks,
+    objects and backgrounds on the card against the CPU from the card's
+    decoded arrays and the same picks (bit for bit), every mask non-empty,
+    and the rendered clean images, from the same depth planes, within
+    test_render_layer_card_vs_cpu's rtol 1e-4 / atol 1e-3; then run_eval
+    (densify none and w) and run_eval_big over the sets with the weights
+    phase 7b trained, each stage's launches counted from 0 just before it."""
+    import random
+
+    from blurry_edges_tpu_torch import cli
+    from blurry_edges_tpu_torch.data import realistic_gen as rg
+    from blurry_edges_tpu_torch.utils import imageio
+    from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+
+    t0 = time.perf_counter()
+    notes = {"decode": coco_decode_reading(dev), "nvjpeg_decodes": {}}
+    frgd, bkgd = f"{COCO_FIXTURE}/coco/", f"{COCO_FIXTURE}/painting/"
+    src = ["--coco", "--cuda", str(dev), "--frgd_path", frgd, "--bkgd_path", bkgd,
+           "--data_path", str(root / "data_test_coco")]
+    sets = {"gen_test_coco": ([], N_COCO, 147, root / "data_test_coco"),
+            "gen_test_big_coco": (["--big"], N_COCO_BIG, BIG, root / "data_test_big_coco")}
+    for stage, (flag, n, H, path) in sets.items():
+        imageio.reset_launch_counts()
+        with counted(stage):
+            cli.gen_test_main(flag + src + ["--num_sample_test", str(n)])
+        read(stage)
+        notes["nvjpeg_decodes"][stage] = imageio.launch_counts()["nvjpeg_decode"]
+        # the reference's composite (the blurred foreground, not clipped,
+        # over the background times 1 - the clipped blurred mask) passes 255
+        # where the mask's accumulated blur passes 1: clean counts may pass
+        # alpha (the JAX package's too, tests/test_torch_coco.py)
+        notes[f"{stage}_noise_z"] = check_generated_test(path, n, H, clean_le_alpha=False)
+        gt = np.load(path / "images_gt.npy")
+        notes[f"{stage}_clean_max_over_alpha"] = float(
+            (gt / np.load(path / "alphas.npy")[:, None, None, None, None]).max())
+
+        # the same picks on the card and on the CPU, from the card's decodes
+        args = get_args("data_gen_test", argv=["--frgd_path", frgd, "--bkgd_path", bkgd])
+        decoded = {}
+
+        def card_read(p, device):
+            decoded[p] = imageio.imread(p, device)
+            return decoded[p]
+
+        cpu_read = lambda p, device: decoded[p].cpu()                    # noqa: E731
+        got = (*rg.load_coco_foregrounds(args, (H, H), n, random.Random(COCO_SEED), dev,
+                                         imread=card_read),
+               rg.load_painting_backgrounds(args, (H, H), n, np.random.RandomState(COCO_SEED),
+                                            dev, imread=card_read))
+        want = (*rg.load_coco_foregrounds(args, (H, H), n, random.Random(COCO_SEED), "cpu",
+                                          imread=cpu_read),
+                rg.load_painting_backgrounds(args, (H, H), n, np.random.RandomState(COCO_SEED),
+                                             "cpu", imread=cpu_read))
+        for name, g, c in zip(("masks", "objects", "backgrounds"), got, want):
+            check(g.device == torch.device(dev) and torch.equal(g.cpu(), c),
+                  f"{stage}: {name} differ between the card and the CPU")
+        check(bool(got[0].flatten(1).any(1).all()), f"{stage}: an empty foreground mask")
+        if H == 147:
+            gen = rg.SyntheticRealisticDataGenerator(args, source="coco", device="cpu")
+            g = torch.Generator().manual_seed(COCO_SEED)
+            worst, own = 0.0, []
+            lin = rg._linspace
+            for i in range(n):
+                draws = rg.draw_planes(g)
+                d_bk, d_fg, _, _ = rg.planar_depths(draws["rel"], draws["angles"], H, H,
+                                                    gen.z_lo, gen.z_hi)
+                inputs = (d_bk, d_fg, want[0][i], want[2][i].float(), want[1][i].float())
+                render = lambda *t: rg.render_image(*t, gen.cam, gen.mag, gen.K,   # noqa: E731
+                                                    gen.n_interval)
+                ref = render(*inputs)
+                card_in = [t.to(dev) for t in inputs]
+                with float32_precision():
+                    mine = render(*card_in).cpu()
+                    # the CPU's depth key points on the card too: the layer
+                    # weights divide by their spacing, so one ulp of a key
+                    # point moves a pixel by up to ~255 x 2 ulp / spacing
+                    rg._linspace = lambda a, b, m: lin(a.cpu(), b.cpu(), m).to(a.device)
+                    try:
+                        img = render(*card_in).cpu()
+                    finally:
+                        rg._linspace = lin
+                worst = max(worst, ((img - ref).abs() / (1e-3 + 1e-4 * ref.abs())).max().item())
+                fg = d_fg[want[0][i]]
+                spacing = min(float(d_bk.max() - d_bk.min()), float(fg.max() - fg.min())) / 150
+                bound = 255 * 4 * float(np.spacing(np.float32(gen.z_hi))) / spacing
+                own.append(((mine - ref).abs().max().item(), bound))
+                check(own[-1][0] < bound, f"COCO render card vs CPU on the card's key points: "
+                                          f"{own[-1][0]:.4f}, the key points' ulp bound {bound:.4f}")
+            notes["render_card_vs_cpu_worst_over_tol"] = worst
+            notes["render_card_key_points_max_vs_bound"] = own
+            check(worst <= 1.0, f"COCO render card vs CPU: {worst:.3f} of rtol 1e-4 atol 1e-3")
+        notes[f"{stage}_mask_px"] = got[0].flatten(1).sum(1).tolist()
+
+    scores = {}
+    for d_ in (None, "w"):
+        args = get_args("eval", argv=["--data_path", str(root / "data_test_coco"),
+                                      "--model_path", str(w)])
+        args.densify = d_
+        with redirect_stdout(io.StringIO()):
+            mods = load_inference_modules(args, densify=d_, device=dev)
+        with counted(f"run_eval_coco_{d_}"):
+            res, _ = run_loop(pipe.run_eval, args, mods, device=dev)
+        got = read(f"run_eval_coco_{d_}")
+        check(got["wedge_colors"] == N_COCO + 1 and got["wedge_render"] == N_COCO + 1
+              and all(math.isfinite(v) for v in res.values()), f"run_eval coco {d_}: {res}")
+        scores[f"run_eval_coco_{d_}"] = res
+    args = get_args("eval", big=True, argv=["--data_path", str(root / "data_test_big_coco"),
+                                            "--model_path", str(w)])
+    with redirect_stdout(io.StringIO()):
+        mods = load_inference_modules(args, big=True, device=dev)
+    with counted("run_eval_big_coco"):
+        res, _ = run_loop(pipe_big.run_eval_big, args, mods, device=dev)
+    got = read("run_eval_big_coco")
+    per_call = -(-N_BLOCKS // args.block_chunk)
+    check(got["wedge_colors"] == (N_COCO_BIG + 1) * per_call
+          and got["wedge_render"] == (N_COCO_BIG + 1) * per_call
+          and all(math.isfinite(v) for v in res.values()), f"run_eval_big coco: {res}")
+    scores["run_eval_big_coco"] = res
+    notes["scores"] = scores
+    notes["seconds"] = time.perf_counter() - t0
+    return notes
 
 
 # --------------------------------------------------------------- step 0, densify, parallel
@@ -1964,6 +2146,8 @@ def main() -> int:
     wedge_names = ("wedge_colors", "wedge_render")
     for stage in ("global_precal", "run_eval_None", "run_eval_w", "run_eval_big"):
         launches_by_path[f"datagen_{stage}"] = {k: gen_launches[stage][k] for k in wedge_names}
+    for stage in ("run_eval_coco_None", "run_eval_coco_w", "run_eval_big_coco"):
+        launches_by_path[stage] = {k: gen_launches[stage][k] for k in wedge_names}
     par = gen_notes["parallel"]
     launches_by_path["densify_pipeline"] = {k: gen_launches["densify_pipeline"][k]
                                             for k in wedge_names}
@@ -1988,6 +2172,28 @@ def main() -> int:
           + "; ".join(f"{k} delta1 {v['delta1']:.4f} at {v['pairs_per_sec']:.3f} pairs/s"
                       for k, v in gen_notes["scores"].items()) + " ok")
     print(f"time datagen stages (s, peak device memory): {gen_clock.line()} [{card}]")
+    coco = gen_notes["coco"]
+    dec = coco["decode"]
+    print("7c coco: nvJPEG decodes vs OpenCV (max, mean |diff|): "
+          + "; ".join(f"{k} {v['max']}, {v['mean']}" for k, v in dec["jpeg"].items())
+          + f"; PNGs bit for bit {dec['png']}; bounds {NVJPEG_MAX_ABS}, {NVJPEG_MEAN_ABS} ok")
+    print(f"time 7c nvJPEG decode of one 640x480 JPEG, warm: "
+          f"{dec['decode_640x480_ms']:.4f} ms with libjpeg's upsampling [{card}]")
+    print(f"7c coco: gen_test --coco {N_COCO} pairs at 147x147 and --big --coco {N_COCO_BIG} at "
+          f"{BIG}x{BIG} (nvJPEG decodes {coco['nvjpeg_decodes']}; noise bias "
+          f"{coco['gen_test_coco_noise_z']:.2f}, {coco['gen_test_big_coco_noise_z']:.2f} standard "
+          f"errors; mask pixels {coco['gen_test_coco_mask_px']}, "
+          f"{coco['gen_test_big_coco_mask_px']}; clean counts up to "
+          f"{coco['gen_test_coco_clean_max_over_alpha']:.4f}, "
+          f"{coco['gen_test_big_coco_clean_max_over_alpha']:.4f} x alpha); masks, objects and "
+          f"backgrounds card = CPU bit for bit; renders card vs CPU from the same key points at "
+          f"{coco['render_card_vs_cpu_worst_over_tol']:.3f} of rtol 1e-4 atol 1e-3, from the "
+          f"card's own key points max |diff| vs the ulp bound "
+          f"{[(round(a, 4), round(b, 4)) for a, b in coco['render_card_key_points_max_vs_bound']]}"
+          f"; evals "
+          + "; ".join(f"{k} delta1 {v['delta1']:.4f}, launches "
+                      f"{launches_by_path[k]}" for k, v in coco["scores"].items())
+          + f"; the phase {coco['seconds']:.1f} s [{card}] ok")
     print(f"datagen launches by stage: {gen_launches}")
     det = gen_notes["determinism"]
     print("step 0, determinism: local_train 2 epochs twice each way: " + "; ".join(

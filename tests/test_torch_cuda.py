@@ -535,3 +535,76 @@ def test_world_size_1_nccl_eval(dev, tmp_path):
                  timeout=300)[0]
     for k in ("delta1", "delta2", "delta3", "rmse", "absrel"):
         assert abs(two[k] - one[k]) < 1e-6, k
+
+
+# the COCO test-set source: nvJPEG's decodes against OpenCV's (the
+# fixture's decoded_cv2/), bounds set from the first card run (PERF.md;
+# an H100 80GB HBM3 at 700 W): at most 3 levels and 0.0183 on average
+# then, the IDCT's rounding carried through the colour conversion
+NVJPEG_MAX_ABS, NVJPEG_MEAN_ABS = 4, 0.05
+
+
+def fixture_path():
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "data" / "coco_fixture"
+
+
+def test_nvjpeg_decodes_match_opencv(dev):
+    import hashlib
+    import json
+
+    from blurry_edges_tpu_torch.utils import imageio
+
+    fix = fixture_path()
+    jpegs = sorted(fix.glob("coco/val2017/*.jpg")) + sorted(fix.glob("painting/*.jpg"))
+    before = imageio.launch_counts()["nvjpeg_decode"]
+    for path in jpegs:
+        tag = "val2017" if "val2017" in str(path) else "painting"
+        want = imageio.decode_png((fix / "decoded_cv2" / f"{tag}_{path.stem}.png").read_bytes())
+        got = imageio.imread(str(path), dev)
+        assert got.device.type == "cuda" and got.dtype == torch.uint8
+        assert tuple(got.shape) == want.shape, path
+        d = np.abs(got.cpu().numpy().astype(np.int16) - want)
+        assert d.max() <= NVJPEG_MAX_ABS and d.mean() <= NVJPEG_MEAN_ABS, (path, d.max(), d.mean())
+    assert imageio.launch_counts()["nvjpeg_decode"] - before == len(jpegs)
+    for key, (shape, digest) in json.loads((fix / "decoded_cv2" / "png_sha256.json").read_text()).items():
+        folder = "coco/val2017" if key.startswith("val2017") else "painting"
+        got = imageio.imread(str(fix / folder / key.split("/")[1]), dev).cpu().numpy()
+        assert list(got.shape) == shape and hashlib.sha256(got.tobytes()).hexdigest() == digest
+
+
+def test_coco_item_resize_and_mask_card_vs_cpu(dev):
+    """One fixture item's mask and object, resized and cropped as the loader
+    does, on the card and on the CPU from the same decoded image: equal bit
+    for bit (integer arithmetic throughout)."""
+    from blurry_edges_tpu_torch.data import realistic_gen as rg
+    from blurry_edges_tpu_torch.data.coco import SimpleCOCO
+    from blurry_edges_tpu_torch.ops.resize import resize_linear_u8
+    from blurry_edges_tpu_torch.utils import imageio
+
+    fix = fixture_path()
+    reader = SimpleCOCO(str(fix / "coco" / "instances_val2017.json"))
+    ann = reader.anns[100]
+    mask = torch.from_numpy(reader.annToMask(ann))
+    arr = imageio.imread(str(fix / "coco" / "val2017" / reader.imgs[ann["image_id"]]["file_name"]),
+                         dev)
+    for size in (147, 587):
+        for a in (mask, arr.cpu() * mask[..., None]):
+            want = rg._scaled_crop(a, (size, size))
+            got = rg._scaled_crop(a.to(dev), (size, size))
+            assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    img = torch.randint(0, 256, (480, 640, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(1))
+    assert torch.equal(resize_linear_u8(img.to(dev), 783, 587).cpu(),
+                       resize_linear_u8(img, 783, 587))
+
+
+def test_image_library_is_apart_from_the_kernels(dev):
+    from blurry_edges_tpu_torch.ops._build import load_image_library, load_library
+
+    image, kernels = load_image_library(), load_library()
+    assert image.path.name.startswith("libimage_") and kernels.path.name.startswith("libkernels_")
+    assert image.path != kernels.path
+    assert b"libnvjpeg" in image.path.read_bytes()
+    assert b"libnvjpeg" not in kernels.path.read_bytes()

@@ -113,7 +113,7 @@ def test_chain_on_the_cpu(tmp_path, capsys):
                                             "--num_sample_test", "1"])
     big = np.load(tmp_path / "data_test_big" / "images_ny.npy")
     assert big.shape == (1, 2, 71, 71, 3)
-    with pytest.raises(NotImplementedError, match="coco"):
+    with pytest.raises(FileNotFoundError, match="instances_val2017.json"):
         cli.main(["gen_test", "--coco"] + cpu + ["--data_path", str(tmp_path / "x")])
 
     w = ["--model_path", str(tmp_path / "w"), "--log_path", str(tmp_path / "elog"),

@@ -10,7 +10,9 @@ against the JAX package's procedural source.
   to rtol 1e-4 / atol 1e-2 from the same depth key points, and within the
   bound that one ulp of a key point sets without them (see the test);
 - the generator's files (names, shapes, float32, integer noisy counts in
-  [0, round(alpha)]: clipped to alpha, then rounded), and ``--coco`` raising with the files it needs.
+  [0, round(alpha)]: clipped to alpha, then rounded), and ``--coco`` raising
+  ``FileNotFoundError`` naming the annotations file when MS-COCO is absent
+  (the source itself: tests/test_torch_coco.py).
 """
 
 import math
@@ -127,5 +129,5 @@ def test_generator_files_and_coco(tmp_path):
     assert (ny == np.round(ny)).all() and ny.min() >= 0 and (ny <= np.round(a)).all()
     assert (out["images_gt"] >= 0).all() and (out["images_gt"] <= a + 1e-3).all()
     assert ((out["depth_maps"] >= 0.75) & (out["depth_maps"] <= 1.18 + 1e-6)).all()
-    with pytest.raises(NotImplementedError, match="instances_val2017.json"):
+    with pytest.raises(FileNotFoundError, match="instances_val2017.json"):
         rg.SyntheticRealisticDataGenerator(args, source="coco", device="cpu")
