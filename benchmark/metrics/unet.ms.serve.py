@@ -1,0 +1,6 @@
+"""Device milliseconds a pair in the network 'unet', by CUDA events on
+forward hooks the benchmark registers, summed over the hooked window."""
+
+
+def read(rec):
+    return rec.get("layer_ms_per_pair", {}).get("unet")
