@@ -1,0 +1,9 @@
+"""Device self milliseconds a pair of the program's `global_stage` span
+(GlobalStage.forward), in the profiled requests: the twin, inside the
+program, of the hooks' global_stage.ms.serve."""
+
+from benchmark.spans import per_pair
+
+
+def read(rec):
+    return per_pair(("global_stage",))

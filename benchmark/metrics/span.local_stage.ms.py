@@ -1,0 +1,9 @@
+"""Device self milliseconds a pair of the program's `local_stage` span
+(LocalStage.forward), in the profiled requests: the twin, inside the
+program, of the hooks' local_stage.ms.serve."""
+
+from benchmark.spans import per_pair
+
+
+def read(rec):
+    return per_pair(("local_stage",))

@@ -1,0 +1,9 @@
+"""Device self milliseconds a pair of the program's `unet` span
+(UNet.forward, the pp densify), in the profiled requests: the twin, inside
+the program, of the hooks' unet.ms.serve."""
+
+from benchmark.spans import per_pair
+
+
+def read(rec):
+    return per_pair(("unet",))

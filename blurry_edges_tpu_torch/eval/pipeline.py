@@ -42,6 +42,7 @@ from ..ops.patchify import fold, fold_count, unfold
 from ..ops.wedge import params2etas
 from ..ops.wedge_cuda import wedge_render
 from ..utils.device import float32_precision, resolve_device
+from ..utils.trace import span
 
 DENSIFY_MODES = (None, "w", "pp")
 
@@ -66,32 +67,33 @@ render_full = wedge_render
 def fold_outputs(rend, grid: GridConfig):
     """Overlap-add every rendered patch grid into image maps (reference
     blurry_edges_test.py:95-100)."""
-    H, W, R, stride = grid.H, grid.W, grid.R, grid.stride
-    dm = rend["depth_mask"]
-    dtype, device = rend["depth_map"].dtype, dm.device
-    count = fold_count(H, W, R, stride, dtype, device)
+    with span("fold"):
+        H, W, R, stride = grid.H, grid.W, grid.R, grid.stride
+        dm = rend["depth_mask"]
+        dtype, device = rend["depth_map"].dtype, dm.device
+        count = fold_count(H, W, R, stride, dtype, device)
 
-    def fold_sum(p):  # (..., Hp, Wp, R, R, C) -> (..., H, W, C)
-        lead = p.shape[:-5]
-        out = fold(p.reshape((-1,) + p.shape[-5:]), H, W, stride)
-        return out.reshape(lead + out.shape[1:])
+        def fold_sum(p):  # (..., Hp, Wp, R, R, C) -> (..., H, W, C)
+            lead = p.shape[:-5]
+            out = fold(p.reshape((-1,) + p.shape[-5:]), H, W, stride)
+            return out.reshape(lead + out.shape[1:])
 
-    def fmean(p):
-        return fold_sum(p) / count[:, :, None]
+        def fmean(p):
+            return fold_sum(p) / count[:, :, None]
 
-    global_image = fmean(rend["patches"])                         # (B,2,H,W,3)
-    global_shpd = fmean(rend["patches_shpd"])                     # (B,H,W,3)
-    global_refoc = fmean(rend["patches_refoc"])
-    global_bndry = fmean(rend["local_bndry"][..., None])[..., 0]  # (B,H,W)
+        global_image = fmean(rend["patches"])                         # (B,2,H,W,3)
+        global_shpd = fmean(rend["patches_shpd"])                     # (B,H,W,3)
+        global_refoc = fmean(rend["patches_refoc"])
+        global_bndry = fmean(rend["local_bndry"][..., None])[..., 0]  # (B,H,W)
 
-    num_depth = fold_sum((dm > 0).to(dtype)[..., None])[..., 0]   # (B,H,W)
-    confidence = num_depth / count
-    depth_sum = fold_sum(rend["depth_map"][..., None])[..., 0]
-    global_depth = depth_sum / torch.where(num_depth > 0, num_depth, 1.0)
+        num_depth = fold_sum((dm > 0).to(dtype)[..., None])[..., 0]   # (B,H,W)
+        confidence = num_depth / count
+        depth_sum = fold_sum(rend["depth_map"][..., None])[..., 0]
+        global_depth = depth_sum / torch.where(num_depth > 0, num_depth, 1.0)
 
-    return dict(global_image=global_image, global_shpd=global_shpd,
-                global_refoc=global_refoc, global_bndry=global_bndry,
-                global_depth=global_depth, confidence=confidence)
+        return dict(global_image=global_image, global_shpd=global_shpd,
+                    global_refoc=global_refoc, global_bndry=global_bndry,
+                    global_depth=global_depth, confidence=confidence)
 
 
 def _as_tensor(imgs) -> torch.Tensor:
@@ -154,16 +156,17 @@ def _make_estimate_fn(mods: InferenceModules, patch_cfg: PatchConfig,
     @torch.inference_mode()
     @float32_precision()
     def estimate(imgs):
-        imgs = imgs.to(device=device, dtype=torch.float32)
-        out = fold_outputs(render(imgs), grid)
-        if densify == "pp":
-            # the raw folded depth, not the thresholded one; in eval mode one
-            # pass over the batch is B single-pair passes
-            out["depth_final"] = mods.unet_model(out["global_depth"][:, None])[:, 0].float()
-        else:
-            out["depth_final"] = torch.where(out["confidence"] > depth_thres,
-                                             out["global_depth"], 0.0)
-        return out
+        with span("estimator", pairs=imgs.shape[0]):
+            imgs = imgs.to(device=device, dtype=torch.float32)
+            out = fold_outputs(render(imgs), grid)
+            if densify == "pp":
+                # the raw folded depth, not the thresholded one; in eval mode one
+                # pass over the batch is B single-pair passes
+                out["depth_final"] = mods.unet_model(out["global_depth"][:, None])[:, 0].float()
+            else:
+                out["depth_final"] = torch.where(out["confidence"] > depth_thres,
+                                                 out["global_depth"], 0.0)
+            return out
 
     return estimate
 

@@ -29,6 +29,7 @@ import torch
 
 from ..config import CamConfig, GridConfig, PatchConfig
 from ..utils.device import float32_precision, resolve_device
+from ..utils.trace import span
 from .pipeline import (InferenceModules, _as_tensor, fold_outputs, make_render_fn, scored,
                        synchronize, timed_groups)
 
@@ -129,29 +130,33 @@ def make_big_depth_estimator(mods: InferenceModules, patch_cfg: PatchConfig,
     @torch.inference_mode()
     @float32_precision()
     def estimate(img_ny):
-        img = _as_tensor(img_ny).to(device=device, dtype=torch.float32)
-        blocks = [img[:, iv * bs0:iv * bs0 + Hb, ih * bs1:ih * bs1 + Wb, :]
-                  for iv in range(nb0) for ih in range(nb1)]
-        st = {k: zero_grid(k) for k in _RENDER_KEYS}
-        for c0 in range(mine.start, mine.stop, chunk):
-            ids = range(c0, min(c0 + chunk, mine.stop))
-            rend = render(torch.stack([blocks[b] for b in ids]))
-            for i, b in enumerate(ids):
-                I0, I1, l0, l1 = rows[b // nb1]
-                J0, J1, m0, m1 = cols[b % nb1]
-                for k in _RENDER_KEYS:
-                    src, dst = rend[k][i], st[k][0]
-                    if k == "patches":     # (2, Hp, Wp, R, R, 3)
-                        dst[:, I0:I1, J0:J1] = src[:, l0:l1, m0:m1]
-                    else:
-                        dst[I0:I1, J0:J1] = src[l0:l1, m0:m1]
-            del rend
-        for k in _RENDER_KEYS:
-            all_reduce(st[k], mesh)
-        out = fold_outputs(st, big_grid)
-        out["depth_final"] = torch.where(out["confidence"] > depth_thres,
-                                         out["global_depth"], 0.0)
-        return out
+        with span("estimator", pairs=1):
+            img = _as_tensor(img_ny).to(device=device, dtype=torch.float32)
+            blocks = [img[:, iv * bs0:iv * bs0 + Hb, ih * bs1:ih * bs1 + Wb, :]
+                      for iv in range(nb0) for ih in range(nb1)]
+            st = {k: zero_grid(k) for k in _RENDER_KEYS}
+            for c0 in range(mine.start, mine.stop, chunk):
+                ids = range(c0, min(c0 + chunk, mine.stop))
+                rend = render(torch.stack([blocks[b] for b in ids]))
+                with span("stitch"):
+                    for i, b in enumerate(ids):
+                        I0, I1, l0, l1 = rows[b // nb1]
+                        J0, J1, m0, m1 = cols[b % nb1]
+                        for k in _RENDER_KEYS:
+                            src, dst = rend[k][i], st[k][0]
+                            if k == "patches":     # (2, Hp, Wp, R, R, 3)
+                                dst[:, I0:I1, J0:J1] = src[:, l0:l1, m0:m1]
+                            else:
+                                dst[I0:I1, J0:J1] = src[l0:l1, m0:m1]
+                del rend
+            if mesh.distributed:       # the ranks' grids put together
+                with span("stitch"):
+                    for k in _RENDER_KEYS:
+                        all_reduce(st[k], mesh)
+            out = fold_outputs(st, big_grid)
+            out["depth_final"] = torch.where(out["confidence"] > depth_thres,
+                                             out["global_depth"], 0.0)
+            return out
 
     return estimate
 

@@ -52,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..utils.seeding import fold_in, generator
+from ..utils.trace import span
 from .layers import LayerNorm, Linear, set_compute_dtype
 
 ATTN_IMPLS = ("xla", "flash")
@@ -208,8 +209,9 @@ class GlobalStage(nn.Module):
         set_compute_dtype(self, dtype)
 
     def forward(self, src, train: bool = False, seed: int = 0):
-        pe = self.pe[None, :src.shape[1], :]
-        if self.compute_dtype != torch.float32:
-            pe = pe.to(self.compute_dtype)
-        x = self.in_src_projection(src) + pe
-        return self.generator(self.encoder(x, train, seed))
+        with span("global_stage"):
+            pe = self.pe[None, :src.shape[1], :]
+            if self.compute_dtype != torch.float32:
+                pe = pe.to(self.compute_dtype)
+            x = self.in_src_projection(src) + pe
+            return self.generator(self.encoder(x, train, seed))

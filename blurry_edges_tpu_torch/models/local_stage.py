@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.trace import span
 from .batchnorm import BatchNorm1d, BatchNorm2d
 from .layers import Conv2d, Linear, set_compute_dtype
 
@@ -82,10 +83,11 @@ class LocalStage(nn.Module):
         set_compute_dtype(self, dtype)
 
     def forward(self, x):
-        y = self.conv1(x.permute(0, 3, 1, 2))
-        y = F.max_pool2d(y, 3, 2, padding=1)
-        y = self.layer0(y)
-        y = F.max_pool2d(y, 3, 2, padding=1)
-        y = self.layer3(self.layer2(self.layer1(y)))
-        y = F.max_pool2d(y, 2, 2)
-        return self.fc(y)
+        with span("local_stage"):
+            y = self.conv1(x.permute(0, 3, 1, 2))
+            y = F.max_pool2d(y, 3, 2, padding=1)
+            y = self.layer0(y)
+            y = F.max_pool2d(y, 3, 2, padding=1)
+            y = self.layer3(self.layer2(self.layer1(y)))
+            y = F.max_pool2d(y, 2, 2)
+            return self.fc(y)

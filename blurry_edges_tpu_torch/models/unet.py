@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.trace import span
 from .batchnorm import BatchNorm2d
 from .layers import Conv2d, ConvTranspose2d, set_compute_dtype
 
@@ -98,11 +99,12 @@ class UNet(nn.Module):
         set_compute_dtype(self, dtype)
 
     def forward(self, x):
-        x1 = self.inc(x)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        y = self.up1(self.down4(x4), x4)
-        y = self.up2(y, x3)
-        y = self.up3(y, x2)
-        return self.outc(self.up4(y, x1))
+        with span("unet"):
+            x1 = self.inc(x)
+            x2 = self.down1(x1)
+            x3 = self.down2(x2)
+            x4 = self.down3(x3)
+            y = self.up1(self.down4(x4), x4)
+            y = self.up2(y, x3)
+            y = self.up3(y, x2)
+            return self.outc(self.up4(y, x1))

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..config import PatchConfig
+from ..utils.trace import span
 from ._launch import check, device_type, raise_on, stream
 from .dfd import DfDSolver
 from .params import wrap_local_params
@@ -63,23 +64,24 @@ def wedge_colors(params, pixels, patch_cfg: PatchConfig):
     """Per-patch ridge colors: params (P, 10) raw local-stage outputs,
     pixels (P, R, R, 3) -> (P, 3, 3) float32. CUDA tensors: the
     wedge_colors kernel; CPU tensors: ``wedge_colors_plain``."""
-    if device_type(params, pixels) == "cpu":
-        return wedge_colors_plain(params, pixels, patch_cfg)
-    R = patch_cfg.R
-    P = params.shape[0]
-    check("params", params, (P, 10))
-    check("pixels", pixels, (P, R, R, 3))
-    from ._build import load_library
+    with span("wedge_colors"):
+        if device_type(params, pixels) == "cpu":
+            return wedge_colors_plain(params, pixels, patch_cfg)
+        R = patch_cfg.R
+        P = params.shape[0]
+        check("params", params, (P, 10))
+        check("pixels", pixels, (P, R, R, 3))
+        from ._build import load_library
 
-    lib = load_library().cdll
-    colors = torch.empty((P, 3, 3), dtype=torch.float32, device=params.device)
-    rc = lib.wedge_colors_launch(params.data_ptr(), pixels.data_ptr(),
-                                 colors.data_ptr(), P, R, patch_cfg.w,
-                                 patch_cfg.lambda_ridge,
-                                 stream(params))
-    raise_on(rc, "wedge_colors")
-    _LAUNCHES["wedge_colors"] += 1
-    return colors
+        lib = load_library().cdll
+        colors = torch.empty((P, 3, 3), dtype=torch.float32, device=params.device)
+        rc = lib.wedge_colors_launch(params.data_ptr(), pixels.data_ptr(),
+                                     colors.data_ptr(), P, R, patch_cfg.w,
+                                     patch_cfg.lambda_ridge,
+                                     stream(params))
+        raise_on(rc, "wedge_colors")
+        _LAUNCHES["wedge_colors"] += 1
+        return colors
 
 
 # --------------------------------------------------------------- render
@@ -120,38 +122,39 @@ def wedge_render(xy_angles, etas, img_patches, patch_cfg: PatchConfig,
     """The full render, same arguments and result as ``wedge_render_plain``.
     CUDA tensors: the wedge_render kernel, which writes every output straight
     into this layout; CPU tensors: ``wedge_render_plain``."""
-    if device_type(xy_angles, etas, img_patches) == "cpu":
-        return wedge_render_plain(xy_angles, etas, img_patches, patch_cfg, dfd,
-                                  rho_prime, hard_mask)
-    R = patch_cfg.R
-    B, Hp, Wp = xy_angles.shape[:3]
-    check("xy_angles", xy_angles, (B, Hp, Wp, 8))
-    check("etas", etas, (B, Hp, Wp, 4))
-    check("img_patches", img_patches, (B, 2, Hp, Wp, R, R, 3))
-    from ._build import load_library
+    with span("wedge_render"):
+        if device_type(xy_angles, etas, img_patches) == "cpu":
+            return wedge_render_plain(xy_angles, etas, img_patches, patch_cfg, dfd,
+                                      rho_prime, hard_mask)
+        R = patch_cfg.R
+        B, Hp, Wp = xy_angles.shape[:3]
+        check("xy_angles", xy_angles, (B, Hp, Wp, 8))
+        check("etas", etas, (B, Hp, Wp, 4))
+        check("img_patches", img_patches, (B, 2, Hp, Wp, R, R, 3))
+        from ._build import load_library
 
-    lib = load_library().cdll
-    dev = xy_angles.device
+        lib = load_library().cdll
+        dev = xy_angles.device
 
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device=dev)
 
-    out = dict(patches=empty(B, 2, Hp, Wp, R, R, 3),
-               patches_shpd=empty(B, Hp, Wp, R, R, 3),
-               patches_refoc=empty(B, Hp, Wp, R, R, 3),
-               local_bndry=empty(B, Hp, Wp, R, R),
-               depth_map=empty(B, Hp, Wp, R, R),
-               depth_mask=empty(B, Hp, Wp, R, R, dtype=torch.int32))
-    delta = 0.07  # boundary-map width (ops.wedge.normalized_gaussian)
-    rc = lib.wedge_render_launch(
-        xy_angles.data_ptr(), etas.data_ptr(), img_patches.data_ptr(),
-        out["patches"].data_ptr(), out["patches_shpd"].data_ptr(),
-        out["patches_refoc"].data_ptr(), out["local_bndry"].data_ptr(),
-        out["depth_map"].data_ptr(), out["depth_mask"].data_ptr(),
-        B, Hp * Wp, R, patch_cfg.w, patch_cfg.lambda_ridge, int(hard_mask),
-        rho_prime, delta**2, dfd.numerator, dfd.denominator_constant,
-        dfd.denominator_factor, dfd.denominator_factor_root, dfd.intercept,
-        dfd.s, stream(xy_angles))
-    raise_on(rc, "wedge_render")
-    _LAUNCHES["wedge_render"] += 1
-    return out
+        out = dict(patches=empty(B, 2, Hp, Wp, R, R, 3),
+                   patches_shpd=empty(B, Hp, Wp, R, R, 3),
+                   patches_refoc=empty(B, Hp, Wp, R, R, 3),
+                   local_bndry=empty(B, Hp, Wp, R, R),
+                   depth_map=empty(B, Hp, Wp, R, R),
+                   depth_mask=empty(B, Hp, Wp, R, R, dtype=torch.int32))
+        delta = 0.07  # boundary-map width (ops.wedge.normalized_gaussian)
+        rc = lib.wedge_render_launch(
+            xy_angles.data_ptr(), etas.data_ptr(), img_patches.data_ptr(),
+            out["patches"].data_ptr(), out["patches_shpd"].data_ptr(),
+            out["patches_refoc"].data_ptr(), out["local_bndry"].data_ptr(),
+            out["depth_map"].data_ptr(), out["depth_mask"].data_ptr(),
+            B, Hp * Wp, R, patch_cfg.w, patch_cfg.lambda_ridge, int(hard_mask),
+            rho_prime, delta**2, dfd.numerator, dfd.denominator_constant,
+            dfd.denominator_factor, dfd.denominator_factor_root, dfd.intercept,
+            dfd.s, stream(xy_angles))
+        raise_on(rc, "wedge_render")
+        _LAUNCHES["wedge_render"] += 1
+        return out

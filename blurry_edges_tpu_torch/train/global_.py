@@ -42,6 +42,7 @@ from ..ops.wedge import (boundary_distance_field_flat, depth_masks,
                          solve_colors)
 from ..utils.device import float32_precision, resolve_device
 from ..utils.seeding import fold_in
+from ..utils.trace import span
 from .optim import clip_by_global_norm_, make_optimizer, set_lr, xavier_reinit
 
 GAMMA_ORDER = ("color", "color_cons", "bndry_cons", "smthns", "smthns_cons",
@@ -303,9 +304,10 @@ def make_step_fns(model: GlobalStage, optimizer: torch.optim.Optimizer,
         est = model(tokens_from_params_src(batch["input_param"]), train=train,
                     seed=seed)
         img_colors = batch["img_gt"] if train else batch["img_ny"]
-        return global_loss_terms(est, img_colors, batch["img_gt"], batch["bndry_dist"],
-                                 batch["deri"], batch["bndry_depth"], patch_cfg,
-                                 grid, dfd, hard_mask=hard_mask)
+        with span("loss"):
+            return global_loss_terms(est, img_colors, batch["img_gt"], batch["bndry_dist"],
+                                     batch["deri"], batch["bndry_depth"], patch_cfg,
+                                     grid, dfd, hard_mask=hard_mask)
 
     def loss_fn(batch, gammas, seed, train):
         batch = expand_compact_batch(batch)
@@ -329,14 +331,16 @@ def make_step_fns(model: GlobalStage, optimizer: torch.optim.Optimizer,
 
     def train_step(batch, gammas, seed: int):
         # reference quirk: colors solved on the clean images in training (:210)
-        with float32_precision():
+        with span("train_step"), float32_precision():
             loss = loss_fn(batch, gammas, seed, True)
             optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            mean_gradients(params, mesh)
-            clip_by_global_norm_(params, 1.0)
-            optimizer.step()
-        return global_mean(loss)
+            with span("backward"):
+                loss.backward()
+            with span("optimizer"):
+                mean_gradients(params, mesh)
+                clip_by_global_norm_(params, 1.0)
+                optimizer.step()
+            return global_mean(loss)
 
     def eval_step(batch, gammas):
         with float32_precision(), torch.no_grad():

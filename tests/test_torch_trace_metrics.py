@@ -1,0 +1,92 @@
+"""The benchmark's readers of the program's spans
+(``benchmark/metrics/span.*.py``): a value after profiled tiny requests and
+steps, None with no spans, and each metric listed only in cells that
+report the end-to-end metric it moves. On the CPU no span has device
+times: the serve readers, which read device self times, return None on the
+CPU's summary, and are shown the host times in the device times' place to
+check what they select and divide."""
+
+import math
+from pathlib import Path
+
+import pytest
+
+from benchmark import harness
+from blurry_edges_tpu_torch.utils import trace
+from tests.test_torch_trace import big_request, estimator_requests, profiled, train_step_call
+
+ROOT = Path(__file__).resolve().parent.parent
+MANIFEST = harness.load_json(ROOT / "BENCHMARK.json")
+SPAN_METRICS = [m for m in MANIFEST["per_layer"] if m["source"] == "program_span"
+                and m["name"].startswith("span.")]
+SERVE = [m["name"] for m in SPAN_METRICS if m["moves"] == "pairs_per_s"]
+TRAIN = [m["name"] for m in SPAN_METRICS if m["moves"] == "train_step_ms"]
+
+
+def reader(name):
+    return harness.load_module(ROOT / "benchmark" / "metrics" / f"{name}.py").read
+
+
+@pytest.fixture(scope="module")
+def spans():
+    """The summary of two 41x41 requests, one 69x69 block-tiled request and
+    one checkpointed training step, all profiled at once."""
+    fns = [estimator_requests(), big_request(), train_step_call()]
+    profiled(lambda: [f() for f in fns])
+    yield trace.summary()
+    trace.reset()
+
+
+def with_host_as_device(summary):
+    return {n: dict(v, device_ms=v["host_ms"], device_self_ms=v["host_self_ms"])
+            for n, v in summary.items()}
+
+
+def test_the_ten_span_metrics_are_declared():
+    assert len(SERVE) == 6 and len(TRAIN) == 4
+    for m in SPAN_METRICS:
+        assert (m["unit"], m["better"]) == ("ms", "lower")
+        assert (ROOT / "benchmark" / "metrics" / f"{m['name']}.py").is_file()
+
+
+@pytest.mark.parametrize("name", TRAIN)
+def test_train_readers_read_host_self_time_a_step(spans, name, monkeypatch):
+    monkeypatch.setattr(trace, "summary", lambda: spans)
+    value = reader(name)({})
+    assert value is not None and math.isfinite(value) and value > 0
+
+
+@pytest.mark.parametrize("name", SERVE)
+def test_serve_readers_read_device_self_time_a_pair(spans, name, monkeypatch):
+    monkeypatch.setattr(trace, "summary", lambda: spans)
+    assert reader(name)({}) is None                  # the CPU recorded no device time
+    monkeypatch.setattr(trace, "summary", lambda: with_host_as_device(spans))
+    value = reader(name)({})
+    assert value is not None and math.isfinite(value) and value > 0
+
+
+def test_serve_readers_divide_by_the_pairs_served(spans, monkeypatch):
+    s = with_host_as_device(spans)
+    monkeypatch.setattr(trace, "summary", lambda: s)
+    pairs = s["estimator"]["pairs"]
+    assert pairs == 4
+    assert reader("span.wedge.ms")({}) == pytest.approx(
+        (s["wedge_colors"]["host_self_ms"] + s["wedge_render"]["host_self_ms"]) / pairs)
+    assert reader("span.stitch_fold.ms")({}) == pytest.approx(
+        (s["stitch"]["host_self_ms"] + s["fold"]["host_self_ms"]) / pairs)
+
+
+@pytest.mark.parametrize("name", SERVE + TRAIN)
+def test_readers_without_spans_return_none(name):
+    trace.reset()
+    assert reader(name)({}) is None
+
+
+@pytest.mark.parametrize("name", [m["name"] for m in SPAN_METRICS])
+def test_each_lists_only_cells_that_report_what_it_moves(name):
+    m = next(x for x in SPAN_METRICS if x["name"] == name)
+    assert m["workloads"]
+    for cell in m["workloads"]:
+        e2e = {e["name"] for e in harness.metrics_for(MANIFEST, cell, False)}
+        assert m["moves"] in e2e
+        assert name in {x["name"] for x in harness.metrics_for(MANIFEST, cell, True)}
