@@ -37,7 +37,8 @@ bfloat16, as ``jnp.sum`` does for a bfloat16 input); the residual sums are
 bfloat16 and LayerNorm computes in float32 and returns bfloat16. The
 output is bfloat16; the caller casts it back. With ``attn_impl="flash"``
 q, k and v go to the float32 kernels and the result back to bfloat16, as
-the JAX package's ``flash_attention_fn`` does.
+the JAX package's ``flash_attention_fn`` does. Under a profiler the
+bfloat16 softmax records the span ``softmax_bf16``.
 """
 
 from __future__ import annotations
@@ -73,9 +74,10 @@ def keyed_dropout(x, rate: float, seed: Optional[int], shape=None):
 def softmax_bf16(x):
     """``jax.nn.softmax`` of a bfloat16 input over the last axis, each
     operation rounded to bfloat16 (torch.softmax would round only its
-    result)."""
-    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
+    result); in the span ``softmax_bf16``."""
+    with span("softmax_bf16"):
+        e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        return e / e.sum(dim=-1, keepdim=True)
 
 
 def sincos_2d_positional_encoding(d_model: int, max_len: int, stride: int) -> np.ndarray:

@@ -9,10 +9,15 @@ check what they select and divide."""
 import math
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 from benchmark import harness
+from blurry_edges_tpu_torch.config import CamConfig, GridConfig, PatchConfig
+from blurry_edges_tpu_torch.eval import pipeline
 from blurry_edges_tpu_torch.utils import trace
+from blurry_edges_tpu_torch.utils.weights import random_modules
 from tests.test_torch_trace import big_request, estimator_requests, profiled, train_step_call
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -27,11 +32,23 @@ def reader(name):
     return harness.load_module(ROOT / "benchmark" / "metrics" / f"{name}.py").read
 
 
+def bf16_request():
+    """One 41x41 request of the estimator with bfloat16 networks, whose
+    softmax has a span of its own."""
+    mods = random_modules(torch.Generator().manual_seed(2), device="cpu", unet=True,
+                          dtype=torch.bfloat16)
+    est = pipeline.make_depth_estimator(mods, PatchConfig(), GridConfig(H=41, W=41), CamConfig(),
+                                        densify="pp", device="cpu")
+    x = np.random.default_rng(5).uniform(0.0, 1.0, (2, 41, 41, 3)).astype(np.float32)
+    return lambda: est(x)
+
+
 @pytest.fixture(scope="module")
 def spans():
-    """The summary of two 41x41 requests, one 69x69 block-tiled request and
-    one checkpointed training step, all profiled at once."""
-    fns = [estimator_requests(), big_request(), train_step_call()]
+    """The summary of two 41x41 requests, one 69x69 block-tiled request, one
+    checkpointed training step and one 41x41 request in bfloat16, all
+    profiled at once."""
+    fns = [estimator_requests(), big_request(), train_step_call(), bf16_request()]
     profiled(lambda: [f() for f in fns])
     yield trace.summary()
     trace.reset()
@@ -43,7 +60,9 @@ def with_host_as_device(summary):
 
 
 def test_the_ten_span_metrics_are_declared():
-    assert len(SERVE) == 6 and len(TRAIN) == 4
+    """The ten of the float32 cells, and the bfloat16 cell's softmax."""
+    assert len(SERVE) == 6 + 1 and len(TRAIN) == 4
+    assert "span.softmax_bf16.ms" in SERVE
     for m in SPAN_METRICS:
         assert (m["unit"], m["better"]) == ("ms", "lower")
         assert (ROOT / "benchmark" / "metrics" / f"{m['name']}.py").is_file()
@@ -69,7 +88,7 @@ def test_serve_readers_divide_by_the_pairs_served(spans, monkeypatch):
     s = with_host_as_device(spans)
     monkeypatch.setattr(trace, "summary", lambda: s)
     pairs = s["estimator"]["pairs"]
-    assert pairs == 4
+    assert pairs == 5
     assert reader("span.wedge.ms")({}) == pytest.approx(
         (s["wedge_colors"]["host_self_ms"] + s["wedge_render"]["host_self_ms"]) / pairs)
     assert reader("span.stitch_fold.ms")({}) == pytest.approx(
