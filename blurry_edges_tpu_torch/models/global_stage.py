@@ -21,9 +21,14 @@ training forward (the JAX package's ``train=True``): dropout at rate
 ``dropout``, its masks drawn from seeds folded from ``s`` (so a recomputed
 layer draws the same masks), and every layer under activation
 checkpointing when gradients are on (the JAX package's per-layer
-``nn.remat``). As Flax's attention does by default, one (L, L) dropout mask
-of the attention probabilities is shared across the batch and the heads;
-the residual and feed-forward dropouts are element-wise.
+``nn.remat``). ``dropout_draws(s, batch, tokens)`` lists each mask's seed
+and shape; given ``masks``, a {seed: draw} of those masks drawn ahead
+(``torch.rand(shape, generator=Generator(seed))``, as ``keyed_dropout``
+draws), the forward reads them instead of drawing, so a CUDA graph can
+hold it with the draws in static buffers. As Flax's attention does by
+default, one (L, L) dropout mask of the attention probabilities is shared
+across the batch and the heads; the residual and feed-forward dropouts are
+element-wise.
 
 ``dtype=torch.bfloat16`` computes as the JAX package's ``GlobalStage(dtype=
 jnp.bfloat16)`` with Flax's ``MultiHeadDotProductAttention``: the linear
@@ -59,15 +64,25 @@ from .layers import LayerNorm, Linear, set_compute_dtype
 ATTN_IMPLS = ("xla", "flash")
 
 
-def keyed_dropout(x, rate: float, seed: Optional[int], shape=None):
+def keyed_dropout(x, rate: float, seed: Optional[int], shape=None,
+                  masks: Optional[dict] = None):
     """Dropout of ``x`` at ``rate`` with the mask drawn from ``seed`` (none
     when ``seed`` is None or the rate is 0); ``shape`` broadcasts one mask
-    over the leading dimensions of ``x``. Kept entries scale by 1/(1-rate)."""
+    over the leading dimensions of ``x``. Kept entries scale by 1/(1-rate).
+    ``masks``: the uniform draws made ahead, by seed; the draw of ``seed``
+    is read from it instead of drawn."""
     if seed is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(shape or x.shape, generator=generator(seed, x.device),
-                   device=x.device, dtype=x.dtype)
+    shape = tuple(shape or x.shape)
+    if masks is None:
+        u = torch.rand(shape, generator=generator(seed, x.device), device=x.device,
+                       dtype=x.dtype)
+    else:
+        u = masks[seed]
+        if tuple(u.shape) != shape or u.dtype != x.dtype:
+            raise ValueError(f"the mask drawn ahead for seed {seed} is {tuple(u.shape)} "
+                             f"{u.dtype}, the dropout needs {shape} {x.dtype}")
     return torch.where(u < keep, x / keep, 0.0)
 
 
@@ -113,7 +128,7 @@ class SelfAttention(nn.Module):
         self.out_proj = Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x, seed: Optional[int] = None):
+    def forward(self, x, seed: Optional[int] = None, masks: Optional[dict] = None):
         B, L, D = x.shape
         hd = D // self.nhead
         dt = self.compute_dtype
@@ -131,7 +146,7 @@ class SelfAttention(nn.Module):
             logits = torch.matmul(q / math.sqrt(hd), k.transpose(-1, -2))
             probs = (torch.softmax(logits, dim=-1) if dt == torch.float32
                      else softmax_bf16(logits))
-            probs = keyed_dropout(probs, self.dropout, seed, shape=(1, 1, L, L))
+            probs = keyed_dropout(probs, self.dropout, seed, shape=(1, 1, L, L), masks=masks)
             out = torch.matmul(probs, v)
         return self.out_proj(out.transpose(1, 2).reshape(B, L, D))
 
@@ -151,16 +166,30 @@ class EncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, eps=layer_norm_eps)
         self.norm2 = LayerNorm(d_model, eps=layer_norm_eps)
 
-    def forward(self, x, seed: Optional[int] = None):
+    def forward(self, x, seed: Optional[int] = None, masks: Optional[dict] = None):
         if seed is None:
             x = self.norm1(x + self.self_attn(x))
             return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
         p = self.dropout
-        attn = keyed_dropout(self.self_attn(x, fold_in(seed, 0)), p, fold_in(seed, 1))
+        s_probs, s_attn, s_ff1, s_ff2 = (fold_in(seed, site) for site in range(4))
+        attn = keyed_dropout(self.self_attn(x, s_probs, masks), p, s_attn, masks=masks)
         x = self.norm1(x + attn)
-        h = keyed_dropout(torch.relu(self.linear1(x)), p, fold_in(seed, 2))
-        h = keyed_dropout(self.linear2(h), p, fold_in(seed, 3))
+        h = keyed_dropout(torch.relu(self.linear1(x)), p, s_ff1, masks=masks)
+        h = keyed_dropout(self.linear2(h), p, s_ff2, masks=masks)
         return self.norm2(x + h)
+
+    def dropout_draws(self, seed: int, batch: int, tokens: int) -> list:
+        """(seed, shape) of each mask ``forward(x, seed)`` draws for ``x`` of
+        (batch, tokens, d_model), in the order it draws them."""
+        s_probs, s_attn, s_ff1, s_ff2 = (fold_in(seed, site) for site in range(4))
+        D, F = self.linear1.in_features, self.linear1.out_features
+        draws = []
+        if self.self_attn.attn_impl == "xla" and self.self_attn.dropout != 0.0:
+            draws.append((s_probs, (1, 1, tokens, tokens)))
+        if self.dropout != 0.0:
+            draws += [(s_attn, (batch, tokens, D)), (s_ff1, (batch, tokens, F)),
+                      (s_ff2, (batch, tokens, D))]
+        return draws
 
 
 class Encoder(nn.Module):
@@ -174,7 +203,7 @@ class Encoder(nn.Module):
             for _ in range(num_layers))
         self.norm = LayerNorm(d_model, eps=layer_norm_eps)
 
-    def forward(self, x, train: bool = False, seed: int = 0):
+    def forward(self, x, train: bool = False, seed: int = 0, masks: Optional[dict] = None):
         if not train:
             for layer in self.layers:
                 x = layer(x)
@@ -182,9 +211,12 @@ class Encoder(nn.Module):
         for i, layer in enumerate(self.layers):
             s = fold_in(seed, i)
             if torch.is_grad_enabled():
-                x = checkpoint(layer, x, s, use_reentrant=False)
+                # no draw uses the global generator, whose state a CUDA
+                # graph's capture may not read
+                x = checkpoint(layer, x, s, masks, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
-                x = layer(x, s)
+                x = layer(x, s, masks)
         return self.norm(x)
 
 
@@ -210,10 +242,17 @@ class GlobalStage(nn.Module):
         self.register_buffer("pe", torch.from_numpy(pe), persistent=False)
         set_compute_dtype(self, dtype)
 
-    def forward(self, src, train: bool = False, seed: int = 0):
+    def forward(self, src, train: bool = False, seed: int = 0, masks: Optional[dict] = None):
         with span("global_stage"):
             pe = self.pe[None, :src.shape[1], :]
             if self.compute_dtype != torch.float32:
                 pe = pe.to(self.compute_dtype)
             x = self.in_src_projection(src) + pe
-            return self.generator(self.encoder(x, train, seed))
+            return self.generator(self.encoder(x, train, seed, masks))
+
+    def dropout_draws(self, seed: int, batch: int, tokens: int) -> list:
+        """(seed, shape) of each dropout mask ``forward(src, train=True,
+        seed=seed)`` draws for ``src`` of (batch, tokens, features), in
+        order; a checkpointed layer's recompute draws its layer's again."""
+        return [d for i, layer in enumerate(self.encoder.layers)
+                for d in layer.dropout_draws(fold_in(seed, i), batch, tokens)]

@@ -4,6 +4,9 @@ sqrt(gx^2 + gy^2 + eps).
 
 ``image_derivative`` works on images (..., H, W, C); ``image_derivative_flat``
 on flattened R x R patches, as a product with a dense (R-2)^2 x R^2 matrix.
+Their constants are built once per device and dtype, as ordinary tensors
+even under ``torch.inference_mode`` (autograd may save them later): a call
+after the first copies nothing from the host, so a CUDA graph can hold it.
 """
 
 from __future__ import annotations
@@ -24,12 +27,18 @@ def image_derivative(img, eps: float = 1e-8):
     lead = img.shape[:-3]
     H, W, C = img.shape[-3:]
     x = img.reshape((-1, H, W, C)).permute(0, 3, 1, 2)
-    k = torch.tensor((_SOBEL_X, _SOBEL_Y), dtype=img.dtype, device=img.device)
-    k = k[:, None].repeat(C, 1, 1, 1)                    # (2C, 1, 3, 3): x, y per channel
-    g = F.conv2d(x, k, groups=C)                         # (n, 2C, H-2, W-2)
+    g = F.conv2d(x, _sobel_kernel(C, img.dtype, img.device), groups=C)  # (n, 2C, H-2, W-2)
     gx, gy = g[:, 0::2], g[:, 1::2]
     out = torch.sqrt(gx**2 + gy**2 + eps).permute(0, 2, 3, 1)
     return out.reshape(lead + (H - 2, W - 2, C))
+
+
+@functools.lru_cache(maxsize=16)
+def _sobel_kernel(C: int, dtype, device) -> torch.Tensor:
+    """(2C, 1, 3, 3): the Sobel pair x, y for each of C channels."""
+    with torch.inference_mode(False):
+        k = torch.tensor((_SOBEL_X, _SOBEL_Y), dtype=dtype, device=device)
+        return k[:, None].repeat(C, 1, 1, 1)
 
 
 @functools.lru_cache(maxsize=8)
@@ -50,11 +59,18 @@ def _sobel_flat_matrices(R: int):
     return Mx, My
 
 
+@functools.lru_cache(maxsize=16)
+def _sobel_flat_device(R: int, dtype, device):
+    """``_sobel_flat_matrices(R)`` as tensors of ``dtype`` on ``device``."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(m).to(device, dtype) for m in _sobel_flat_matrices(R))
+
+
 def image_derivative_flat(p, R: int, eps: float = 1e-8):
     """Sobel gradient magnitude on flattened patches: p (..., R*R) ->
     (..., (R-2)^2), the values of ``image_derivative`` on the (R, R)
     patches. Both products sum in float32 when TF32 is off."""
-    Mx, My = (torch.from_numpy(m).to(p.device, p.dtype) for m in _sobel_flat_matrices(R))
+    Mx, My = _sobel_flat_device(R, p.dtype, p.device)
     gx = torch.matmul(p, Mx.T)
     gy = torch.matmul(p, My.T)
     return torch.sqrt(gx**2 + gy**2 + eps)

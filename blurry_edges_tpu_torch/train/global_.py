@@ -42,8 +42,9 @@ from ..ops.wedge import (boundary_distance_field_flat, depth_masks,
                          solve_colors)
 from ..utils.device import float32_precision, resolve_device
 from ..utils.seeding import fold_in
-from ..utils.trace import span
-from .optim import clip_by_global_norm_, make_optimizer, set_lr, xavier_reinit
+from ..utils.trace import profiling, span
+from .optim import (clip_by_global_norm_, make_capturable, make_optimizer, set_lr,
+                    xavier_reinit)
 
 GAMMA_ORDER = ("color", "color_cons", "bndry_cons", "smthns", "smthns_cons",
                "bndry_loc", "depth")
@@ -267,6 +268,128 @@ def compact_arrays(ds, include_ny: bool):
     return out
 
 
+class StaticStep:
+    """A training step on buffers of fixed address: the batch, the loss
+    weights and every dropout mask the step draws.
+
+    ``load(batch, gammas, seed)`` copies a step's inputs in and draws its
+    masks, each by the seed the step's own forward draws it from
+    (``draws(seed)``: (seed, shape) of each), with one generator reseeded
+    for each draw, so each mask is the one ``keyed_dropout`` draws; the
+    forward and a checkpointed layer's recompute read the same draw.
+    ``run()`` runs the step (``body(batch, gammas, seed, masks)``) on the
+    buffers; ``capture(stream)`` records ``run`` in a CUDA graph and
+    ``replay()`` repeats it on the loaded inputs, returning a copy of the
+    loss."""
+
+    def __init__(self, body, draws, batch, gammas, mask_dtype):
+        device = gammas.device
+        self.body, self.draws, self.mask_dtype = body, draws, mask_dtype
+        self.batch = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                      for k, v in batch.items()}
+        self.gammas = torch.empty_like(gammas)
+        self.generator = torch.Generator(device=device)
+        self.buffers = None
+        self.masks = self.seed = self.loss = self.graph = None
+
+    def load(self, batch, gammas, seed: int) -> None:
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        self.gammas.copy_(gammas)
+        sites = self.draws(seed)
+        if self.buffers is None:
+            self.buffers = [torch.empty(shape, dtype=self.mask_dtype, device=self.gammas.device)
+                            for _, shape in sites]
+        for (s, shape), buf in zip(sites, self.buffers):
+            self.generator.manual_seed(s)
+            torch.rand(shape, generator=self.generator, out=buf)
+        self.masks = {s: buf for (s, _), buf in zip(sites, self.buffers)}
+        self.seed = seed
+
+    def run(self):
+        self.loss = self.body(self.batch, self.gammas, self.seed, self.masks)
+        return self.loss
+
+    def capture(self, stream) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.run()
+
+    def replay(self):
+        self.graph.replay()
+        return self.loss.clone()
+
+
+def _signature(batch, gammas) -> tuple:
+    return (tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items())),
+            tuple(gammas.shape), gammas.dtype, gammas.device)
+
+
+class TrainStep:
+    """``step(batch, gammas, seed)``: one optimizer step, returning the
+    loss (``make_step_fns``).
+
+    On a CUDA device, in one process (no collective) and with gradients on,
+    the step runs as a CUDA graph, one for each input signature (the
+    batch's keys, shapes and dtypes, and the loss weights'). The first call
+    of a signature runs eagerly, on the stream the capture will use: it is
+    a real step, and it warms up what a capture may not set up (the
+    optimizer's state, cuBLAS's handles, autograd). The second loads its
+    inputs into a ``StaticStep``, captures the step and replays it; every
+    later call loads its inputs and replays the graph, in the span
+    ``graph_replay``. A signature not yet captured runs eagerly while a
+    profiler runs (spans record CUDA events, which a capture may not hold).
+    Before the first such step the optimizer is made capturable
+    (``optim.make_capturable``), so load a resumed optimizer state before
+    it. Elsewhere, and in ``eager``, the step runs eagerly as written."""
+
+    def __init__(self, body, draws, model: GlobalStage, optimizer, mesh: Mesh):
+        self.body, self.draws, self.model = body, draws, model
+        self.optimizer, self.mesh = optimizer, mesh
+        self.steps: Dict[tuple, StaticStep] = {}
+        self.stream = None
+
+    def eager(self, batch, gammas, seed: int):
+        """The step as written, run eagerly."""
+        with span("train_step"), float32_precision():
+            return self.body(batch, gammas, seed)
+
+    def static(self, batch, gammas) -> StaticStep:
+        """A new ``StaticStep`` for inputs of the signature of these."""
+        B, _, L, _ = batch["input_param"].shape
+        return StaticStep(self.body, functools.partial(self.draws, batch=B, tokens=L),
+                          batch, gammas, self.model.compute_dtype)
+
+    def __call__(self, batch, gammas, seed: int):
+        device = next(self.model.parameters()).device
+        if device.type != "cuda" or self.mesh.distributed or not torch.is_grad_enabled():
+            return self.eager(batch, gammas, seed)
+        with span("train_step"), float32_precision():
+            key = _signature(batch, gammas)
+            st = self.steps.get(key)
+            if st is None or (st.graph is None and profiling()):
+                if st is None:
+                    make_capturable(self.optimizer)
+                    if self.stream is None:
+                        self.stream = torch.cuda.Stream(device)
+                    self.steps[key] = self.static(batch, gammas)
+                current = torch.cuda.current_stream(device)
+                self.stream.wait_stream(current)
+                with torch.cuda.stream(self.stream):
+                    loss = self.body(batch, gammas, seed)
+                current.wait_stream(self.stream)
+                return loss
+            if st.graph is None:
+                st.load(batch, gammas, seed)
+                # the capture's backward makes the gradients in its own pool
+                self.optimizer.zero_grad(set_to_none=True)
+                st.capture(self.stream)
+                return st.replay()
+            with span("graph_replay"):
+                st.load(batch, gammas, seed)
+                return st.replay()
+
+
 def make_step_fns(model: GlobalStage, optimizer: torch.optim.Optimizer,
                   patch_cfg: PatchConfig, grid: GridConfig, dfd: DfDSolver,
                   grad_accum: int = 1, hard_mask: bool = False,
@@ -275,9 +398,10 @@ def make_step_fns(model: GlobalStage, optimizer: torch.optim.Optimizer,
 
     ``train_step(batch, gammas, seed)`` takes one AdamW step on the model's
     parameters (gradient clipped to a global norm of 1.0) and returns the
-    loss; ``eval_step(batch, gammas)`` returns the loss without dropout.
-    Batches are expanded or compact. Both run in full float32 (TF32 off),
-    the JAX package's ``default_matmul_precision("highest")``.
+    loss; on a CUDA device in one process it runs as a CUDA graph
+    (``TrainStep``). ``eval_step(batch, gammas)`` returns the loss without
+    dropout. Batches are expanded or compact. Both run in full float32
+    (TF32 off), the JAX package's ``default_matmul_precision("highest")``.
 
     The batch splits into ``grad_accum`` chunks with exact batch
     semantics: terms 1-6 are the mean of the chunks' means and the depth
@@ -299,54 +423,65 @@ def make_step_fns(model: GlobalStage, optimizer: torch.optim.Optimizer,
     """
     mesh = mesh or make_mesh()
     params = [p for p in model.parameters() if p.requires_grad]
+    chunks = max(grad_accum, 1)
 
-    def loss_parts(batch, seed, train):
+    def chunk_seed(seed, i):
+        return fold_in(seed, mesh.rank * chunks + i)
+
+    def loss_parts(batch, seed, train, masks):
         est = model(tokens_from_params_src(batch["input_param"]), train=train,
-                    seed=seed)
+                    seed=seed, masks=masks)
         img_colors = batch["img_gt"] if train else batch["img_ny"]
         with span("loss"):
             return global_loss_terms(est, img_colors, batch["img_gt"], batch["bndry_dist"],
                                      batch["deri"], batch["bndry_depth"], patch_cfg,
                                      grid, dfd, hard_mask=hard_mask)
 
-    def loss_fn(batch, gammas, seed, train):
+    def loss_fn(batch, gammas, seed, train, masks=None):
         batch = expand_compact_batch(batch)
-        chunks = max(grad_accum, 1)
         B = batch["input_param"].shape[0]
         if B % chunks:
             raise ValueError(f"batch {B} does not split into {chunks} chunks")
         c = B // chunks
-        part = (functools.partial(checkpoint, loss_parts, use_reentrant=False)
+        # no draw uses the global generator, whose state a CUDA graph's
+        # capture may not read
+        part = (functools.partial(checkpoint, loss_parts, use_reentrant=False,
+                                  preserve_rng_state=False)
                 if torch.is_grad_enabled() and chunks > 1 else loss_parts)
         t_sum = S = N = 0.0
         for i in range(chunks):
             chunk = {k: v[i * c:(i + 1) * c] for k, v in batch.items()}
-            terms, S_i, N_i = part(chunk, fold_in(seed, mesh.rank * chunks + i), train)
+            terms, S_i, N_i = part(chunk, chunk_seed(seed, i), train, masks)
             t_sum, S, N = t_sum + terms, S + S_i, N + N_i
         N = all_reduce(N.detach().clone(), mesh)
         return (gammas[:6] * (t_sum / chunks)).sum() + gammas[6] * (mesh.size * S) / N
 
+    def dropout_draws(seed, batch, tokens):
+        """(seed, shape) of every dropout mask of a step on ``batch``
+        samples of ``tokens`` tokens."""
+        return [d for i in range(chunks)
+                for d in model.dropout_draws(chunk_seed(seed, i), batch // chunks, tokens)]
+
     def global_mean(loss):
         return all_reduce(loss.detach().clone(), mesh) / mesh.size
 
-    def train_step(batch, gammas, seed: int):
+    def step_body(batch, gammas, seed, masks=None):
         # reference quirk: colors solved on the clean images in training (:210)
-        with span("train_step"), float32_precision():
-            loss = loss_fn(batch, gammas, seed, True)
-            optimizer.zero_grad(set_to_none=True)
-            with span("backward"):
-                loss.backward()
-            with span("optimizer"):
-                mean_gradients(params, mesh)
-                clip_by_global_norm_(params, 1.0)
-                optimizer.step()
-            return global_mean(loss)
+        loss = loss_fn(batch, gammas, seed, True, masks)
+        optimizer.zero_grad(set_to_none=True)
+        with span("backward"):
+            loss.backward()
+        with span("optimizer"):
+            mean_gradients(params, mesh)
+            clip_by_global_norm_(params, 1.0)
+            optimizer.step()
+        return global_mean(loss)
 
     def eval_step(batch, gammas):
         with float32_precision(), torch.no_grad():
             return global_mean(loss_fn(batch, gammas, 0, False))
 
-    return train_step, eval_step
+    return TrainStep(step_body, dropout_draws, model, optimizer, mesh), eval_step
 
 
 def load_global_compact(data_path: str, train: bool, subset: int = 0,

@@ -10,7 +10,9 @@ Counterparts of the JAX package's ``train/local.py`` (:51-82), which builds
 - ``clip_by_global_norm_``: optax's clip, g * max/norm when the global norm
   reaches max (``torch.nn.utils.clip_grad_norm_`` divides by norm + 1e-6);
 - ``set_lr`` / ``current_lr``: the injected learning rate, through the
-  optimizer's ``param_groups``;
+  optimizer's ``param_groups``; a rate held as a tensor is written in place;
+- ``make_capturable``: the optimizer's step made one a CUDA graph can hold
+  (``capturable``, the learning rate a 0-d tensor on the device);
 - ``xavier_reinit``: Xavier normal (truncated at two standard deviations,
   as ``jax.nn.initializers.xavier_normal``) with the fans of the Flax
   parameter shapes, zero biases, unit norm scales (LayerNorm and
@@ -55,12 +57,35 @@ def clip_by_global_norm_(params, max_norm: float = 1.0) -> torch.Tensor:
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate; one held as a tensor (``make_capturable``)
+    is filled in place, so a step a CUDA graph replays reads the new rate."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def current_lr(optimizer: torch.optim.Optimizer) -> float:
     return float(optimizer.param_groups[0]["lr"])
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """In place, before the steps a CUDA graph is to hold: every group runs
+    ``capturable`` (its update computed on the device, from device step
+    counts), its learning rate a 0-d float32 tensor on its parameters'
+    device, and step counts already kept (a resumed state) move there.
+    Repeating it changes nothing."""
+    for group in optimizer.param_groups:
+        device = group["params"][0].device
+        group["capturable"] = True
+        lr = group["lr"]
+        if not (isinstance(lr, torch.Tensor) and lr.device == device):
+            group["lr"] = torch.tensor(float(lr), dtype=torch.float32, device=device)
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(device=p.device, dtype=torch.float32)
 
 
 def _truncated_normal_(t: torch.Tensor, std: float, g: torch.Generator):

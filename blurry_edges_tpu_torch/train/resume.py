@@ -26,7 +26,7 @@ def save_step_snapshot(path: str, model: torch.nn.Module,
                        loss_count: int, best_loss: float, best_epoch: int) -> None:
     save_checkpoint(path, {
         "model": model.state_dict(),
-        "optimizer": optimizer.state_dict(),
+        "optimizer": portable_state(optimizer),
         # plain Python numbers: a numpy scalar (the scheduler keeps the
         # metric it was given) would not load with weights_only
         "sched": {k: v.item() if hasattr(v, "item") else v
@@ -35,6 +35,19 @@ def save_step_snapshot(path: str, model: torch.nn.Module,
                 "loss_count": int(loss_count), "best_loss": float(best_loss),
                 "best_epoch": int(best_epoch)},
     })
+
+
+def portable_state(optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer's state dict as any trainer loads it, on any device:
+    learning rates as numbers and ``capturable`` off, as the optimizer was
+    made (a step held in a CUDA graph turns both on again,
+    ``optim.make_capturable``)."""
+    state = optimizer.state_dict()
+    for group in state["param_groups"]:
+        group["lr"] = float(group["lr"])
+        if "capturable" in group:
+            group["capturable"] = False
+    return state
 
 
 def load_step_snapshot(path: str, model: torch.nn.Module,

@@ -61,6 +61,11 @@ _RECORDS: list = []      # closed spans, in the order they closed
 _IDS = itertools.count(1)
 
 
+def profiling() -> bool:
+    """True while a profiler session runs."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def span(name: str, pairs: Optional[int] = None):
     """A context that records the stage ``name`` while a profiler runs.
     ``pairs``: the image pairs the stage serves (given on a request's root)."""

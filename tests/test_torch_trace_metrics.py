@@ -25,7 +25,10 @@ MANIFEST = harness.load_json(ROOT / "BENCHMARK.json")
 SPAN_METRICS = [m for m in MANIFEST["per_layer"] if m["source"] == "program_span"
                 and m["name"].startswith("span.")]
 SERVE = [m["name"] for m in SPAN_METRICS if m["moves"] == "pairs_per_s"]
-TRAIN = [m["name"] for m in SPAN_METRICS if m["moves"] == "train_step_ms"]
+# recorded only around the replay of a CUDA graph, which the CPU never runs
+GRAPH = ["span.graph_replay.host_ms", "host.graph_replay_pct.train"]
+TRAIN = [m["name"] for m in SPAN_METRICS
+         if m["moves"] == "train_step_ms" and m["name"] not in GRAPH]
 
 
 def reader(name):
@@ -109,3 +112,34 @@ def test_each_lists_only_cells_that_report_what_it_moves(name):
         e2e = {e["name"] for e in harness.metrics_for(MANIFEST, cell, False)}
         assert m["moves"] in e2e
         assert name in {x["name"] for x in harness.metrics_for(MANIFEST, cell, True)}
+
+
+def replayed_steps():
+    """A fake summary of 4 profiled steps, 3 of them replayed graphs."""
+    return {"train_step": dict(calls=4, host_ms=40.0, host_self_ms=30.0, device_ms=None,
+                               device_self_ms=None, pairs=None),
+            "graph_replay": dict(calls=3, host_ms=9.0, host_self_ms=7.5, device_ms=None,
+                                 device_self_ms=None, pairs=None)}
+
+
+def test_graph_readers_read_replays_a_step(monkeypatch):
+    monkeypatch.setattr(trace, "summary", replayed_steps)
+    assert reader("host.graph_replay_pct.train")({}) == pytest.approx(75.0)
+    assert reader("span.graph_replay.host_ms")({}) == pytest.approx(7.5 / 4)
+
+
+@pytest.mark.parametrize("name", GRAPH)
+def test_graph_readers_without_replays_return_none(name, spans, monkeypatch):
+    trace.reset()
+    assert reader(name)({}) is None
+    monkeypatch.setattr(trace, "summary", lambda: spans)   # eager CPU steps only
+    assert "train_step" in spans and "graph_replay" not in spans
+    assert reader(name)({}) is None
+
+
+@pytest.mark.parametrize("name", GRAPH)
+def test_graph_readers_are_declared_for_the_training_cell(name):
+    m = next(x for x in MANIFEST["per_layer"] if x["name"] == name)
+    assert (m["source"], m["moves"], m["workloads"]) == ("program_span", "train_step_ms",
+                                                        ["be147.train"])
+    assert m["layer"] == "host: Python dispatch and kernel launches"
