@@ -3,7 +3,7 @@
 
     python3 big_chunk_sweep.py [--chunks 1 2 4 6 9 12 18 36] [--dtypes float32 bfloat16] [--reps 3]
 
-Seeded random full-width weights (``utils/weights.py::random_modules``)
+Seeded random full-width weights (``models/weights.py::random_modules``)
 and a seeded 587x587 pair. For each compute dtype and chunk it times
 ``reps`` calls of ``make_big_depth_estimator`` after one warm-up call (host
 clock around calls that end in ``torch.cuda.synchronize()``, the input a
@@ -31,7 +31,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from blurry_edges_tpu_torch.config import CamConfig, GridConfig, PatchConfig  # noqa: E402
 from blurry_edges_tpu_torch.eval.pipeline_big import make_big_depth_estimator  # noqa: E402
 from blurry_edges_tpu_torch.ops import wedge_cuda  # noqa: E402
-from blurry_edges_tpu_torch.utils.weights import random_modules  # noqa: E402
+from blurry_edges_tpu_torch.models.weights import random_modules  # noqa: E402
 
 
 def main() -> int:

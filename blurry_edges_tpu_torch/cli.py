@@ -17,7 +17,7 @@ counterpart (``blurry-edges-eval``, ``blurry-edges-eval-big``,
 ``blurry-edges-global-precal``, ``blurry-edges-densify-train``);
 ``--cuda`` names the device (``cpu`` for the CPU). The evaluations, the
 precal and ``densify_train --pipeline`` read ``<model_path>/<name>.pth``
-weights (``utils/weights.py``). The chain that retrains the system for
+weights (``models/weights.py``). The chain that retrains the system for
 another camera: gen_trainval, local_train (its data path is the train/val
 set's ``patches/``), global_precal with the local stage it trained,
 global_train, then densify_train for the ``pp`` U-Net (the same data path
@@ -76,7 +76,7 @@ def eval_main(argv: Optional[list] = None) -> dict:
     from .config import get_args
     from .eval.pipeline import run_eval
     from .eval.visualize import make_file_visualizer
-    from .utils.weights import load_inference_modules
+    from .models.weights import load_inference_modules
 
     argv = list(sys.argv[1:] if argv is None else argv)
     profile = "--profile" in argv
@@ -95,7 +95,7 @@ def eval_big_main(argv: Optional[list] = None) -> dict:
     from .config import get_args
     from .eval.pipeline_big import run_eval_big
     from .eval.visualize import make_file_visualizer
-    from .utils.weights import load_inference_modules
+    from .models.weights import load_inference_modules
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = get_args("eval", big=True, argv=argv)
@@ -192,7 +192,7 @@ def densify_train_main(argv: Optional[list] = None) -> dict:
     args.data_path = args.data_path.replace("/patches", "")
     modules = max_samples = None
     if source == "pipeline":
-        from .utils.weights import load_inference_modules
+        from .models.weights import load_inference_modules
 
         modules = load_inference_modules(args, device=args.cuda)
         max_samples = (1500, 300)

@@ -1,5 +1,5 @@
 // JPEG decoding on the card through nvJPEG, the CUDA toolkit's JPEG
-// decoder, with a plain C interface for ctypes (utils/imageio.py).
+// decoder, with a plain C interface for ctypes (data/imageio.py).
 //
 // It replaces no TPU kernel: the JAX package reads its MS-COCO and Painting
 // JPEGs on the host with OpenCV's libjpeg (cv2.imread in

@@ -23,7 +23,7 @@ JAX package picks them. Its draws come from a ``random.Random(seed)``
 (foregrounds) and an ``np.random.RandomState(seed)`` (backgrounds) in place
 of Python's and numpy's global generators, in the JAX loader's order:
 every foreground, then every background. Images are decoded on the
-device (``utils/imageio.py``: nvJPEG on a card); the masks' connected
+device (``data/imageio.py``: nvJPEG on a card); the masks' connected
 components are counted on the host; the object, the resize
 (``ops/resize.py``, OpenCV's bilinear) and the crop run on the device.
 """
@@ -41,7 +41,7 @@ import torch
 from ..config import CamConfig
 from ..ops import optics
 from ..ops.resize import resize_linear_u8
-from ..utils import imageio
+from . import imageio
 from ..utils.device import float32_precision, resolve_device
 from .shapes_gen import add_photon_noise
 
@@ -266,7 +266,7 @@ def load_coco_foregrounds(args, image_size, n: int, rand: random.Random, device=
     structure, and its image decodes; the object is the
     image times the mask in uint8, both resized and centre-cropped.
     Returns (masks (n, H, W) bool, objects (n, H, W, 3) uint8) on
-    ``device``. ``imread(path, device)`` decodes (``utils/imageio.py``)."""
+    ``device``. ``imread(path, device)`` decodes (``data/imageio.py``)."""
     from scipy.ndimage import label
 
     from .coco import open_coco

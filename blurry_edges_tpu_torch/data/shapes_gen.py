@@ -37,7 +37,7 @@ from ..ops import optics
 from ..ops.morphology import dilate_full, dilate_full_n, distance_transform_l1
 from ..ops.sobel import image_derivative
 from ..utils.device import float32_precision, resolve_device
-from ..utils.imageio import imwrite_png
+from .imageio import imwrite_png
 
 # the JAX command line's seed of this mode (its cli.py:124)
 SEED = 1869

@@ -24,7 +24,6 @@ threshold) is float32.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 from typing import Callable, Optional
@@ -33,28 +32,18 @@ import numpy as np
 import torch
 
 from ..config import CamConfig, GridConfig, PatchConfig
-from ..models.global_stage import GlobalStage
 from ..models.local_stage import LocalStage
-from ..models.unet import UNet
+from ..models.weights import InferenceModules
 from ..ops.dfd import DfDSolver
-from ..ops.params import denormalize_global_eval
+from ..ops.params import (denormalize_global_eval, normalize_token_features,
+                          wrap_local_params)
 from ..ops.patchify import fold, fold_count, unfold
 from ..ops.wedge import params2etas
-from ..ops.wedge_cuda import wedge_render
+from ..ops.wedge_cuda import wedge_colors, wedge_render
 from ..utils.device import float32_precision, resolve_device
 from ..utils.trace import span
 
 DENSIFY_MODES = (None, "w", "pp")
-
-
-@dataclasses.dataclass
-class InferenceModules:
-    """The models of the pipeline, with their weights; the U-Net only for
-    ``densify="pp"``."""
-
-    local_model: LocalStage
-    global_model: GlobalStage
-    unet_model: Optional[UNet] = None
 
 
 # The JAX package's render_full (eval/pipeline.py:45-73): pair renders with a
@@ -103,6 +92,27 @@ def _as_tensor(imgs) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(imgs, dtype=np.float32))
 
 
+def local_tokens(model: LocalStage, img_pairs, patch_cfg: PatchConfig,
+                 grid: GridConfig):
+    """Image pairs (B, 2, H, W, 3), alpha-normalized -> normalized tokens
+    (B, 2, L, 19) and wrapped raw params (B, 2, L, 10), L = Hp * Wp: unfold
+    each pair into patches, run the local CNN, wrap the angles, solve each
+    patch's wedge colors on its pixels (the ``wedge_colors`` kernel on CUDA
+    tensors, its plain version on CPU tensors) and normalise to 19 features.
+    The estimators' first stage, and the global pre-calculation's."""
+    B = img_pairs.shape[0]
+    L, R = grid.num_tokens, grid.R
+    patches = unfold(img_pairs.reshape((B * 2,) + img_pairs.shape[2:]),
+                     R, grid.stride)                         # (2B, Hp, Wp, R, R, 3)
+    flat = patches.reshape(B * 2 * L, R, R, 3)
+    # a bfloat16 CNN's output is cast back here: the colors and tokens are
+    # float32 (the JAX package's global_precal.py:108)
+    params = wrap_local_params(model(flat).float())          # (2BL, 10)
+    colors = wedge_colors(params.contiguous(), flat.contiguous(), patch_cfg)  # (2BL, 3, 3)
+    tokens = normalize_token_features(params, colors)
+    return tokens.reshape(B, 2, L, 19), params.reshape(B, 2, L, 10)
+
+
 def make_render_fn(mods: InferenceModules, patch_cfg: PatchConfig,
                    grid: GridConfig, cam: CamConfig, hard_mask: bool,
                    rho_prime: float) -> Callable:
@@ -112,8 +122,6 @@ def make_render_fn(mods: InferenceModules, patch_cfg: PatchConfig,
     params2etas, the render. The per-pair (and, on the 587x587 path, the
     per-block) core; the caller sets eval mode, inference mode and the
     precision."""
-    from ..train.global_precal import local_tokens
-
     dfd = DfDSolver.from_config(cam, patch_cfg)
     Hp, Wp, L, R = grid.H_patches, grid.W_patches, grid.num_tokens, grid.R
 

@@ -1,4 +1,5 @@
-"""Weights for the port's models.
+"""The port's models as a pipeline holds them (``InferenceModules``), and
+their weights.
 
 ``jax_local_to_torch``, ``jax_global_to_torch`` and ``jax_unet_to_torch`` map
 a Flax parameter tree of the JAX package (as numpy arrays) onto this
@@ -21,6 +22,7 @@ resolved to.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import Dict, Optional, Tuple
@@ -29,12 +31,22 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models.global_stage import GlobalStage, SelfAttention
-from ..models.local_stage import LocalStage
-from ..models.unet import UNet
-from .device import resolve_device
+from ..utils.device import resolve_device
+from .global_stage import GlobalStage, SelfAttention
+from .local_stage import LocalStage
+from .unet import UNet
 
 StateDict = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class InferenceModules:
+    """The models of the pipeline, with their weights; the U-Net only for
+    ``densify="pp"``."""
+
+    local_model: LocalStage
+    global_model: GlobalStage
+    unet_model: Optional[UNet] = None
 
 
 def _t(a) -> torch.Tensor:
@@ -191,11 +203,9 @@ def random_modules(generator: torch.Generator, device="cuda", unet: bool = False
                    dtype=torch.float32):
     """Full-width LocalStage and GlobalStage (and, with ``unet``, the
     depth-completion U-Net) with seeded random weights, in eval mode on
-    ``device``, computing in ``dtype``, as ``eval.pipeline.InferenceModules``.
+    ``device``, computing in ``dtype``, as ``InferenceModules``.
     The two stages take the same draws with or without the U-Net, and in
     either dtype."""
-    from ..eval.pipeline import InferenceModules
-
     device = resolve_device(device)
     local, glob = LocalStage(dtype=dtype), GlobalStage(dtype=dtype)
     _randomize(local, generator)
@@ -252,8 +262,6 @@ def load_inference_modules(args, densify: Optional[str] = None,
     found as ``<args.model_path>/<name>.pth``; with none found it raises,
     or with ``allow_random`` takes seeded random weights. Prints what each
     stage resolved to."""
-    from ..eval.pipeline import InferenceModules
-
     device = resolve_device(device)
     dtype = (torch.bfloat16 if getattr(args, "serve_dtype", "float32") == "bfloat16"
              else torch.float32)

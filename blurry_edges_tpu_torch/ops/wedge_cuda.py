@@ -19,9 +19,9 @@ from ..utils.trace import span
 from ._launch import check, device_type, raise_on, stream
 from .dfd import DfDSolver
 from .params import wrap_local_params
-from .wedge import (boundary_map, dists2indicators, indicator_flat,
-                    inverse_3x3, params2dists_flat, params2etas,
-                    render_patches)
+from .wedge import (boundary_map, depth_from_etas, dists2indicators,
+                    indicator_flat, inverse_3x3, params2dists_flat, params2etas,
+                    render_pair_grid, render_patches)
 
 _LAUNCHES = {"wedge_colors": 0, "wedge_render": 0}
 
@@ -41,8 +41,8 @@ def reset_launch_counts() -> None:
 
 def wedge_colors_plain(params, pixels, patch_cfg: PatchConfig):
     """Plain PyTorch per-patch color solve (the flat Gram path of the JAX
-    ``solve_patch_colors``): params (P, 10) raw local-stage outputs (angles
-    wrapped here), pixels (P, R, R, 3) -> colors (P, 3 wedges, 3)."""
+    package's ``solve_patch_colors``): params (P, 10) raw local-stage outputs
+    (angles wrapped here), pixels (P, R, R, 3) -> colors (P, 3 wedges, 3)."""
     R, w = patch_cfg.R, patch_cfg.w
     params = wrap_local_params(params)
     coords = torch.linspace(-1.0, 1.0, R, dtype=params.dtype, device=params.device)
@@ -96,8 +96,6 @@ def wedge_render_plain(xy_angles, etas, img_patches, patch_cfg: PatchConfig,
     xy_angles (B, Hp, Wp, 8); etas (B, Hp, Wp, 4);
     img_patches (B, 2, Hp, Wp, R, R, 3).
     """
-    from ..train.global_ import depth_from_etas, render_pair_grid
-
     patches, _, colors, dists = render_pair_grid(xy_angles, etas, img_patches, patch_cfg)
     local_bndry = boundary_map(dists)
     depth_map, depth_mask, d1, d2 = depth_from_etas(etas, dists, dfd, hard_mask=hard_mask)

@@ -1,13 +1,5 @@
-"""The global stage's patch-grid render and its trainer.
-
-``render_pair_grid`` and ``depth_from_etas``: shared wedge geometry with
-per-image blur levels, a joint ridge color solve across the image pair,
-and the DfD depth of each patch (reference global_training.py:62-90), in
-the grid-leading layouts params (B, Hp, Wp, k), fields
-(B, [2,] Hp, Wp, R, R[, C]).
-
-The trainer (reference global_training.py:11-225, the JAX package's
-train/global_.py): the 7-term loss on the flat layout (fields (..., L, N)
+"""The global stage's trainer (reference global_training.py:11-225, the JAX
+package's train/global_.py): the 7-term loss on the flat layout (fields (..., L, N)
 with L = Hp*Wp tokens and N = R*R pixels), the two-phase gamma schedule,
 AdamW lr 1e-4 with the global gradient norm clipped at 1.0, batch 8,
 ReduceLROnPlateau(factor .975, patience 5, min 50%) stepped only from epoch
@@ -35,11 +27,9 @@ from ..ops.params import denormalize_global_train
 from ..ops.patchify import fold_count, fold_flat, unfold_flat_cm
 from ..ops.sobel import image_derivative, image_derivative_flat
 from ..parallel.mesh import Mesh, all_reduce, make_mesh, mean_gradients
-from ..ops.wedge import (boundary_distance_field_flat, depth_masks,
-                         depth_masks_flat, dists2indicators, indicator_flat,
-                         inverse_3x3, make_patch_grid, normalized_gaussian,
-                         params2dists, params2dists_flat, render_patches,
-                         solve_colors)
+from ..ops.wedge import (boundary_distance_field_flat, depth_masks_flat,
+                         indicator_flat, inverse_3x3, normalized_gaussian,
+                         params2dists_flat)
 from ..utils.device import float32_precision, resolve_device
 from ..utils.seeding import fold_in
 from ..utils.trace import profiling, span
@@ -50,43 +40,6 @@ GAMMA_ORDER = ("color", "color_cons", "bndry_cons", "smthns", "smthns_cons",
                "bndry_loc", "depth")
 # samples a chunk of the trainer's batch holds (gradient accumulation)
 CHUNK_SAMPLES = 2
-
-
-def render_pair_grid(xy_angles, etas, img_patches, patch_cfg: PatchConfig):
-    """xy_angles (B, Hp, Wp, 8); etas (B, Hp, Wp, 4) ordered (img1 wedge1,
-    img1 wedge2, img2 wedge1, img2 wedge2); img_patches (B, 2, Hp, Wp, R, R, 3).
-
-    Returns (patches (B,2,Hp,Wp,R,R,3), wedges_pair (B,2,Hp,Wp,3,R,R),
-    colors (B,Hp,Wp,3,3), dists (B,Hp,Wp,2,R,R)).
-    """
-    R = patch_cfg.R
-    x, y = make_patch_grid(R, xy_angles.dtype, xy_angles.device)
-    dists = params2dists(xy_angles, x, y, patch_cfg.w)
-    w1 = dists2indicators(dists, etas[..., 0:2])
-    w2 = dists2indicators(dists, etas[..., 2:4])
-    wedges_pair = torch.stack([w1, w2], dim=1)             # (B,2,Hp,Wp,3,R,R)
-
-    # joint ridge solve: the design matrix stacks both images' pixels
-    A = torch.movedim(wedges_pair, -3, -1)                 # (B,2,Hp,Wp,R,R,3)
-    A = torch.movedim(A, 1, 3)                             # (B,Hp,Wp,2,R,R,3)
-    A = A.reshape(A.shape[:3] + (2 * R * R, 3))
-    yv = torch.movedim(img_patches, 1, 3).reshape(A.shape[:3] + (2 * R * R, 3))
-    colors = solve_colors(A, yv, patch_cfg.lambda_ridge)   # (B,Hp,Wp,3,3)
-
-    patches = render_patches(wedges_pair, colors[:, None])  # (B,2,Hp,Wp,R,R,3)
-    return patches, wedges_pair, colors, dists
-
-
-def depth_from_etas(etas, dists, dfd: DfDSolver, hard_mask: bool = False):
-    """Per-patch DfD depth map and wedge-assignment mask.
-
-    Returns (depth (B,Hp,Wp,R,R), mask int32 (B,Hp,Wp,R,R), d1, d2 (B,Hp,Wp))."""
-    d1 = dfd.etas2depth(etas[..., 0], etas[..., 2])
-    d2 = dfd.etas2depth(etas[..., 1], etas[..., 3])
-    mask = depth_masks(dists, hard=hard_mask)
-    depth = torch.where(mask == 1, d1[..., None, None],
-                        torch.where(mask == 2, d2[..., None, None], 0.0))
-    return depth, mask, d1, d2
 
 
 def gammas_to_array(g: Dict[str, float], device=None) -> torch.Tensor:

@@ -2,13 +2,11 @@
 pair of a dataset, the global stage's training input (reference
 global_data_pre_cal.py:10-70).
 
-``local_tokens`` unfolds each image pair into patches, runs the local CNN,
-wraps the angles, solves each patch's wedge colors on its noisy pixels
-(the ``wedge_colors`` kernel on CUDA tensors, its plain version on CPU
-tensors) and normalises to 19 features; the estimators share it.
-``make_precal_fn`` runs it over a device batch of pairs in float32 (TF32
-off), and ``run_global_precal`` writes ``params_src_{train,val}.npy`` (N, 2,
-Hp*Wp, 19) through ``open_memmap``, 8 pairs a device batch.
+``make_precal_fn`` runs the estimators' first stage
+(``eval/pipeline.py::local_tokens``) over a device batch of noisy pairs in
+float32 (TF32 off), and ``run_global_precal`` writes
+``params_src_{train,val}.npy`` (N, 2, Hp*Wp, 19) through ``open_memmap``, 8
+pairs a device batch.
 """
 
 from __future__ import annotations
@@ -20,40 +18,10 @@ import numpy as np
 import torch
 
 from ..config import GridConfig, PatchConfig
+from ..eval.pipeline import local_tokens
 from ..models.local_stage import LocalStage
-from ..ops.params import normalize_token_features, wrap_local_params
-from ..ops.patchify import unfold
-from ..ops.wedge_cuda import wedge_colors
+from ..models.weights import LOCAL_NAMES, resolve_weights
 from ..utils.device import float32_precision
-
-
-def solve_patch_colors(params, patch_pixels, patch_cfg: PatchConfig):
-    """Per-patch ridge colors: params (..., 10), patch_pixels (..., R, R, 3)
-    -> (..., 3, 3). CUDA tensors go through the wedge_colors kernel, CPU
-    tensors through its plain version."""
-    lead = params.shape[:-1]
-    R = patch_cfg.R
-    colors = wedge_colors(params.reshape(-1, 10).contiguous(),
-                          patch_pixels.reshape(-1, R, R, 3).contiguous(),
-                          patch_cfg)
-    return colors.reshape(lead + (3, 3))
-
-
-def local_tokens(model: LocalStage, img_pairs, patch_cfg: PatchConfig,
-                 grid: GridConfig):
-    """Image pairs (B, 2, H, W, 3), alpha-normalized -> normalized tokens
-    (B, 2, L, 19) and wrapped raw params (B, 2, L, 10), L = Hp * Wp."""
-    B = img_pairs.shape[0]
-    L, R = grid.num_tokens, grid.R
-    patches = unfold(img_pairs.reshape((B * 2,) + img_pairs.shape[2:]),
-                     R, grid.stride)                         # (2B, Hp, Wp, R, R, 3)
-    flat = patches.reshape(B * 2 * L, R, R, 3)
-    # a bfloat16 CNN's output is cast back here: the colors and tokens are
-    # float32 (the JAX package's global_precal.py:108)
-    params = wrap_local_params(model(flat).float())          # (2BL, 10)
-    colors = solve_patch_colors(params, flat, patch_cfg)     # (2BL, 3, 3)
-    tokens = normalize_token_features(params, colors)
-    return tokens.reshape(B, 2, L, 19), params.reshape(B, 2, L, 10)
 
 
 def make_precal_fn(model: LocalStage, patch_cfg: PatchConfig, grid: GridConfig):
@@ -74,8 +42,6 @@ def load_local_stage(model_path: str, device) -> LocalStage:
     """The LocalStage of ``<model_path>/<name>.pth``, by the JAX package's
     names and order (``pretrained_local_stage``, then
     ``best_run_exp_local_stage``), on ``device``; prints the file."""
-    from ..utils.weights import LOCAL_NAMES, resolve_weights
-
     path = resolve_weights(model_path, LOCAL_NAMES)
     if path is None:
         raise FileNotFoundError(f"no weights for any of {LOCAL_NAMES} under {model_path}")

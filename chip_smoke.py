@@ -90,7 +90,7 @@ from blurry_edges_tpu_torch.train.checkpoint import checkpoint_exists  # noqa: E
 from blurry_edges_tpu_torch.train.optim import make_optimizer, xavier_reinit  # noqa: E402
 from blurry_edges_tpu_torch.utils.device import float32_precision  # noqa: E402
 from blurry_edges_tpu_torch.utils.seeding import fold_in  # noqa: E402
-from blurry_edges_tpu_torch.utils.weights import random_modules  # noqa: E402
+from blurry_edges_tpu_torch.models.weights import random_modules  # noqa: E402
 
 SEED = 0
 N_PAIRS = 4
@@ -792,7 +792,7 @@ def run_datagen_path(root: Path, dev, grid: GridConfig, patch_cfg: PatchConfig):
     from blurry_edges_tpu_torch import cli
     from blurry_edges_tpu_torch.train import local as tl
     from blurry_edges_tpu_torch.train.global_precal import load_local_stage, make_precal_fn
-    from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+    from blurry_edges_tpu_torch.models.weights import load_inference_modules
 
     cuda, H = ["--cuda", str(dev)], grid.H
     data, w = root / "data", root / "w"
@@ -962,7 +962,7 @@ def coco_decode_reading(dev) -> dict:
     synchronize)."""
     import hashlib
 
-    from blurry_edges_tpu_torch.utils import imageio
+    from blurry_edges_tpu_torch.data import imageio
 
     out = {"jpeg": {}, "png": {}}
     for path in sorted(COCO_FIXTURE.glob("coco/val2017/*.jpg")) + sorted(
@@ -1004,8 +1004,8 @@ def run_coco_path(root: Path, w: Path, dev, counted, read) -> dict:
 
     from blurry_edges_tpu_torch import cli
     from blurry_edges_tpu_torch.data import realistic_gen as rg
-    from blurry_edges_tpu_torch.utils import imageio
-    from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+    from blurry_edges_tpu_torch.data import imageio
+    from blurry_edges_tpu_torch.models.weights import load_inference_modules
 
     t0 = time.perf_counter()
     notes = {"decode": coco_decode_reading(dev), "nvjpeg_decodes": {}}
@@ -1301,7 +1301,7 @@ def run_densify_path(root: Path, data: Path, w: Path, dev, grid, patch_cfg, coun
     chunks 4, 8, 16; ms a train step. Returns its notes."""
     from blurry_edges_tpu_torch import cli
     from blurry_edges_tpu_torch.train import densify as td
-    from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+    from blurry_edges_tpu_torch.models.weights import load_inference_modules
 
     notes = {}
     for name, n in (("real_train", N_REAL_TRAIN), ("real_val", N_REAL_VAL)):
@@ -1463,7 +1463,7 @@ def dp_paths(root: Path, w: Path, mesh=None, dev=None, only_global=False) -> dic
     run_eval_big (1 pair, its maps) under ``mesh`` (a rank's) or in one
     process on ``dev``."""
     from blurry_edges_tpu_torch.train import local as tl
-    from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+    from blurry_edges_tpu_torch.models.weights import load_inference_modules
 
     dev = mesh.device if mesh is not None else dev
     tag = "dp2" if mesh is not None else "one"

@@ -8,7 +8,7 @@ photon counts.
 
 ``weights`` reads each committed Orbax checkpoint through the JAX package
 and maps it onto the port's state dict by the bridge
-(``blurry_edges_tpu_torch/utils/weights.py``: ``jax_local_to_torch``,
+(``blurry_edges_tpu_torch/models/weights.py``: ``jax_local_to_torch``,
 ``jax_global_to_torch``, ``jax_unet_to_torch``), saved as
 ``<name>.pth`` under the checkpoint's own name, which the port's
 ``load_inference_modules`` resolves.
@@ -54,7 +54,7 @@ def to_numpy(tree):
 def bridge_checkpoint(ckpt: dict, kind: str) -> dict:
     """A checkpoint's Flax variables (params, batch_stats) -> the port's
     state dict."""
-    from blurry_edges_tpu_torch.utils import weights as w
+    from blurry_edges_tpu_torch.models import weights as w
 
     params = to_numpy(ckpt["params"])
     if kind == "local":

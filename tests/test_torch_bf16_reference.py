@@ -29,7 +29,7 @@ from benchmark.reference import models_lowp as lowp
 from benchmark.reference.estimator import Estimator
 from blurry_edges_tpu_torch.config import CamConfig, GridConfig, PatchConfig
 from blurry_edges_tpu_torch.eval import pipeline
-from blurry_edges_tpu_torch.utils.weights import random_modules
+from blurry_edges_tpu_torch.models.weights import random_modules
 
 ROOT = Path(__file__).resolve().parent.parent
 H = 41

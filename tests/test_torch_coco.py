@@ -70,7 +70,7 @@ from blurry_edges_tpu_torch.data import coco  # noqa: E402
 from blurry_edges_tpu_torch.data import realistic_gen as rg  # noqa: E402
 from blurry_edges_tpu_torch.data import shapes_gen as sg  # noqa: E402
 from blurry_edges_tpu_torch.ops.resize import resize_linear_u8  # noqa: E402
-from blurry_edges_tpu_torch.utils import imageio  # noqa: E402
+from blurry_edges_tpu_torch.data import imageio  # noqa: E402
 
 torch.set_num_threads(1)  # torch's and XLA-CPU's thread pools share this process
 
@@ -498,7 +498,7 @@ def test_png_only_set_without_opencv(tmp_path):
         "import sys\n"
         "sys.modules['cv2'] = None\n"
         "from blurry_edges_tpu_torch import cli\n"
-        "from blurry_edges_tpu_torch.utils import imageio\n"
+        "from blurry_edges_tpu_torch.data import imageio\n"
         f"cli.gen_test_main(['--coco', '--cuda', 'cpu', '--frgd_path', '{tmp_path}/coco/',\n"
         f"    '--bkgd_path', '{tmp_path}/painting/', '--data_path', '{tmp_path}/data_test',\n"
         "    '--img_size', '33', '33', '--num_sample_test', '2'])\n"

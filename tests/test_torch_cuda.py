@@ -27,7 +27,7 @@ from blurry_edges_tpu_torch.ops import wedge_cuda
 from blurry_edges_tpu_torch.ops.dfd import DfDSolver
 from blurry_edges_tpu_torch.ops.wedge import params2etas
 from blurry_edges_tpu_torch.utils.device import float32_precision
-from blurry_edges_tpu_torch.utils.weights import random_modules
+from blurry_edges_tpu_torch.models.weights import random_modules
 
 pytestmark = pytest.mark.cuda
 
@@ -554,7 +554,7 @@ def test_nvjpeg_decodes_match_opencv(dev):
     import hashlib
     import json
 
-    from blurry_edges_tpu_torch.utils import imageio
+    from blurry_edges_tpu_torch.data import imageio
 
     fix = fixture_path()
     jpegs = sorted(fix.glob("coco/val2017/*.jpg")) + sorted(fix.glob("painting/*.jpg"))
@@ -581,7 +581,7 @@ def test_coco_item_resize_and_mask_card_vs_cpu(dev):
     from blurry_edges_tpu_torch.data import realistic_gen as rg
     from blurry_edges_tpu_torch.data.coco import SimpleCOCO
     from blurry_edges_tpu_torch.ops.resize import resize_linear_u8
-    from blurry_edges_tpu_torch.utils import imageio
+    from blurry_edges_tpu_torch.data import imageio
 
     fix = fixture_path()
     reader = SimpleCOCO(str(fix / "coco" / "instances_val2017.json"))

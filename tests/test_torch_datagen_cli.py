@@ -22,7 +22,7 @@ from blurry_edges_tpu_torch import cli
 from blurry_edges_tpu_torch.config import get_args
 from blurry_edges_tpu_torch.train import local
 from blurry_edges_tpu_torch.train.checkpoint import load_checkpoint
-from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+from blurry_edges_tpu_torch.models.weights import load_inference_modules
 
 torch.set_num_threads(1)
 

@@ -53,7 +53,7 @@ from blurry_edges_tpu.train import local as jlocal
 from blurry_edges_tpu_torch import cli
 from blurry_edges_tpu_torch.models.unet import UNet
 from blurry_edges_tpu_torch.train import densify, optim
-from blurry_edges_tpu_torch.utils.weights import jax_unet_to_torch, random_modules
+from blurry_edges_tpu_torch.models.weights import jax_unet_to_torch, random_modules
 from tests.test_torch_unet import perturbed_unet_vars
 
 torch.set_num_threads(1)  # torch's and XLA-CPU's thread pools share this process

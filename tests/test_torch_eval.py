@@ -36,7 +36,7 @@ from blurry_edges_tpu_torch.eval import visualize
 from blurry_edges_tpu_torch.eval.metrics import eval_depth
 from blurry_edges_tpu_torch.models.global_stage import GlobalStage
 from blurry_edges_tpu_torch.models.local_stage import LocalStage
-from blurry_edges_tpu_torch.utils import weights as w
+from blurry_edges_tpu_torch.models import weights as w
 from tests.test_torch_pipeline import bridged_modules, to_numpy
 from tests.test_torch_serve_dtype import perturbed_local_vars
 

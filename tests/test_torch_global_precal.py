@@ -23,7 +23,7 @@ from blurry_edges_tpu.train import global_precal as jprecal
 
 from blurry_edges_tpu_torch.config import get_args
 from blurry_edges_tpu_torch.train import global_precal
-from blurry_edges_tpu_torch.utils.weights import jax_local_to_torch
+from blurry_edges_tpu_torch.models.weights import jax_local_to_torch
 
 torch.set_num_threads(1)  # torch's and XLA-CPU's thread pools share this process
 

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 from blurry_edges_tpu import models as jmodels
 
 from blurry_edges_tpu_torch.models.local_stage import LocalStage
-from blurry_edges_tpu_torch.utils.weights import jax_local_to_torch
+from blurry_edges_tpu_torch.models.weights import jax_local_to_torch
 
 torch.set_num_threads(1)  # torch's and XLA-CPU's thread pools share this process
 

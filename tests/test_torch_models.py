@@ -1,6 +1,6 @@
 """The port's models and weight bridge against the JAX package's Flax models.
 
-- The bridge (blurry_edges_tpu_torch.utils.weights) inverts the JAX
+- The bridge (blurry_edges_tpu_torch.models.weights) inverts the JAX
   package's torch -> Flax converter exactly: a round trip gives the Flax
   tree back bit for bit.
 - With the committed checkpoints, bridged into the port, the eval-mode
@@ -26,7 +26,7 @@ from blurry_edges_tpu.utils import torch_convert as tc
 
 from blurry_edges_tpu_torch.models.global_stage import GlobalStage
 from blurry_edges_tpu_torch.models.local_stage import LocalStage
-from blurry_edges_tpu_torch.utils.weights import (jax_global_to_torch,
+from blurry_edges_tpu_torch.models.weights import (jax_global_to_torch,
                                                   jax_local_to_torch,
                                                   random_modules)
 

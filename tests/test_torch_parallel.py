@@ -43,7 +43,7 @@ from blurry_edges_tpu_torch.eval import pipeline, pipeline_big
 from blurry_edges_tpu_torch.models.batchnorm import BatchNorm2d
 from blurry_edges_tpu_torch.parallel import mesh as pm
 from blurry_edges_tpu_torch.train.global_ import run_global_training
-from blurry_edges_tpu_torch.utils.weights import random_modules
+from blurry_edges_tpu_torch.models.weights import random_modules
 
 torch.set_num_threads(1)
 

@@ -13,6 +13,7 @@ pixel between 0 and a metric depth). The ``pp`` densify's depth_final, the
 U-Net over global_depth, has its own check (``assert_pp_depth_close``).
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -39,7 +40,7 @@ from blurry_edges_tpu_torch.eval.pipeline import (InferenceModules,
                                                   make_depth_estimator)
 from blurry_edges_tpu_torch.models.global_stage import GlobalStage
 from blurry_edges_tpu_torch.models.local_stage import LocalStage
-from blurry_edges_tpu_torch.utils.weights import (jax_global_to_torch,
+from blurry_edges_tpu_torch.models.weights import (jax_global_to_torch,
                                                   jax_local_to_torch,
                                                   random_modules)
 from tests.test_torch_unet import bridged_unet, perturbed_unet_vars
@@ -256,6 +257,43 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 18  # every module was imported
+
+
+# The port's layers, bottom to top. A module imports from its own layer or a
+# lower one, lazy imports inside functions included.
+LAYERS = (("config", "utils"), ("parallel",), ("ops",), ("models",), ("data",),
+          ("eval",), ("train",), ("cli",))
+
+
+def test_port_imports_point_down_the_layers():
+    """No module of the port imports from a higher layer than its own, and
+    every module belongs to a layer; each offending import is named in the
+    one failure message."""
+    rank = {name: i for i, names in enumerate(LAYERS) for name in names}
+    faults = []
+    for path in sorted((ROOT / "blurry_edges_tpu_torch").rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        if parts[1:] == ("__init__",):
+            continue
+        where = path.relative_to(ROOT)
+        if parts[1] not in rank:
+            faults.append(f"{where}: {parts[1]} is in no layer")
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                targets = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = list(parts[:len(parts) - node.level]) if node.level else []
+                base += node.module.split(".") if node.module else []
+                targets = [".".join(base + [alias.name]) for alias in node.names]
+            else:
+                continue
+            for target in targets:
+                top = target.split(".")
+                if (top[0] == "blurry_edges_tpu_torch" and len(top) > 1
+                        and rank.get(top[1], -1) > rank[parts[1]]):
+                    faults.append(f"{where}:{node.lineno}: {parts[1]} imports {target}")
+    assert not faults, "imports against the layer order:\n" + "\n".join(faults)
 
 
 @pytest.mark.slow

@@ -39,7 +39,7 @@ from blurry_edges_tpu_torch.ops.dfd import DfDSolver
 from blurry_edges_tpu_torch.ops.params import denormalize_global_eval
 from blurry_edges_tpu_torch.ops.patchify import unfold
 from blurry_edges_tpu_torch.ops.wedge import params2etas
-from blurry_edges_tpu_torch.utils.weights import random_modules
+from blurry_edges_tpu_torch.models.weights import random_modules
 from tests.test_torch_pipeline import bridged_modules, to_numpy
 from tests.test_torch_unet import perturbed_unet_vars
 
@@ -172,7 +172,7 @@ def test_bf16_committed_weights_track_f32(tmp_path, capsys):
     tool) over 4 seeded 147x147 pairs: bfloat16 metrics within the JAX
     package's bf16 tolerances of float32 (tests/test_serve_dtype.py)."""
     import export_torch_assets as tool
-    from blurry_edges_tpu_torch.utils.weights import load_inference_modules
+    from blurry_edges_tpu_torch.models.weights import load_inference_modules
     from tests.test_torch_eval import eval_args, write_test_set
 
     root = Path(__file__).resolve().parent.parent

@@ -17,7 +17,7 @@ from blurry_edges_tpu_torch.ops.dfd import DfDSolver
 from blurry_edges_tpu_torch.train import global_ as tg
 from blurry_edges_tpu_torch.train.optim import make_optimizer
 from blurry_edges_tpu_torch.utils import trace
-from blurry_edges_tpu_torch.utils.weights import random_modules
+from blurry_edges_tpu_torch.models.weights import random_modules
 
 H = 41
 PATCH, CAM = PatchConfig(), CamConfig()

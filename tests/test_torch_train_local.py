@@ -42,7 +42,7 @@ from blurry_edges_tpu.train import local as jlocal
 from blurry_edges_tpu_torch.config import PatchConfig
 from blurry_edges_tpu_torch.models.local_stage import LocalStage
 from blurry_edges_tpu_torch.train import local, optim
-from blurry_edges_tpu_torch.utils.weights import jax_local_to_torch
+from blurry_edges_tpu_torch.models.weights import jax_local_to_torch
 
 torch.set_num_threads(1)  # torch's and XLA-CPU's thread pools share this process
 

@@ -50,7 +50,7 @@ from blurry_edges_tpu_torch.models.global_stage import GlobalStage
 from blurry_edges_tpu_torch.ops.dfd import DfDSolver
 from blurry_edges_tpu_torch.train import global_ as tg
 from blurry_edges_tpu_torch.train.optim import make_optimizer
-from blurry_edges_tpu_torch.utils.weights import jax_global_to_torch
+from blurry_edges_tpu_torch.models.weights import jax_global_to_torch
 
 torch.set_num_threads(1)  # torch's and XLA-CPU's thread pools share this process
 

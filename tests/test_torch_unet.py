@@ -28,7 +28,7 @@ from blurry_edges_tpu import models as jmodels
 from blurry_edges_tpu.utils import torch_convert as tc
 
 from blurry_edges_tpu_torch.models.unet import UNet
-from blurry_edges_tpu_torch.utils.weights import jax_unet_to_torch
+from blurry_edges_tpu_torch.models.weights import jax_unet_to_torch
 
 torch.set_num_threads(1)  # torch's and XLA-CPU's thread pools share this process
 

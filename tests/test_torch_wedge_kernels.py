@@ -30,7 +30,6 @@ from blurry_edges_tpu_torch.config import CamConfig, PatchConfig
 from blurry_edges_tpu_torch.eval.pipeline import render_full
 from blurry_edges_tpu_torch.ops import wedge_cuda
 from blurry_edges_tpu_torch.ops.dfd import DfDSolver
-from blurry_edges_tpu_torch.train.global_precal import solve_patch_colors
 
 torch.set_num_threads(1)  # torch's and XLA-CPU's thread pools share this process
 
@@ -89,14 +88,16 @@ def test_plain_colors_match_pallas_kernel():
 
 
 def test_solve_patch_colors_matches_jax_flat_path():
+    # the JAX package's solve over leading axes (2, 32), the port's
+    # wedge_colors over the same 64 patches given flat
     params, pixels = colors_inputs(64)
-    params = params.reshape(2, 32, 10)
-    pixels = pixels.reshape(2, 32, R, R, 3)
     wrapped = np.asarray(jax_wrap(jnp.asarray(params)))
-    want = jax_solve_colors(jnp.asarray(wrapped), jnp.asarray(pixels), JPATCH)
-    got = solve_patch_colors(t(wrapped), t(pixels), PATCH)
-    assert got.shape == (2, 32, 3, 3)
-    npt.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3, atol=2e-4)
+    want = jax_solve_colors(jnp.asarray(wrapped.reshape(2, 32, 10)),
+                            jnp.asarray(pixels.reshape(2, 32, R, R, 3)), JPATCH)
+    got = wedge_cuda.wedge_colors(t(wrapped), t(pixels), PATCH)
+    assert got.shape == (64, 3, 3)
+    npt.assert_allclose(got.numpy(), np.asarray(want).reshape(64, 3, 3),
+                        rtol=2e-3, atol=2e-4)
 
 
 def test_plain_colors_degenerate_params():

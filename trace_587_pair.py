@@ -107,7 +107,7 @@ def port_modules(out: Path):
 
     from blurry_edges_tpu_torch.models.global_stage import GlobalStage
     from blurry_edges_tpu_torch.models.local_stage import LocalStage
-    from blurry_edges_tpu_torch.utils.weights import jax_global_to_torch, jax_local_to_torch
+    from blurry_edges_tpu_torch.models.weights import jax_global_to_torch, jax_local_to_torch
 
     with open(out / "weights.pkl", "rb") as f:
         lv, gv = pickle.load(f)
@@ -140,7 +140,7 @@ def run_port(out: Path) -> None:
     import torch
 
     from blurry_edges_tpu_torch.config import GridConfig, PatchConfig
-    from blurry_edges_tpu_torch.train.global_precal import local_tokens
+    from blurry_edges_tpu_torch.eval.pipeline import local_tokens
 
     local, glob, img = port_modules(out)
     mm = memmaps(out, "port", "w+")
