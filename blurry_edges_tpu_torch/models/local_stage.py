@@ -12,6 +12,12 @@ jnp.bfloat16)``: every convolution and linear layer casts its input and
 parameters to bfloat16 (``models/layers.py``), BatchNorm computes in
 float32 and returns bfloat16, and Smish, the residual sums and the pooling
 run in bfloat16; the output is bfloat16 and the caller casts it back.
+
+Each convolution (and the head's first linear layer) runs with its tail
+(bias, BatchNorm, the residual sum, Smish, the max-pool) through ``tail``:
+in float32 on a CUDA card in eval mode with autograd off one kernel a
+junction (``ops/local_epilogue.py``), ten a forward; otherwise the modules'
+own chain, ``local_epilogue_plain``.
 """
 
 from __future__ import annotations
@@ -22,23 +28,38 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.local_epilogue import Smish, fuses, local_epilogue, smish
 from ..utils.trace import span
 from .batchnorm import BatchNorm1d, BatchNorm2d
 from .layers import Conv2d, Linear, set_compute_dtype
 
 
-def smish(x):
-    """Smish(x) = x * tanh(log(1 + sigmoid(x))). In bfloat16 the sigmoid is
-    1 / (1 + exp(-x)) with each operation rounded, as XLA expands Flax's
-    ``nn.sigmoid`` (torch.sigmoid would round once)."""
-    if x.dtype != torch.bfloat16:
-        return x * torch.tanh(torch.log1p(torch.sigmoid(x)))
-    return x * torch.tanh(torch.log1p(1.0 / (1.0 + torch.exp(-x))))
+def local_epilogue_plain(y, norm, residual=None, residual_norm=None, pool=None):
+    """``smish(norm(y) + residual_norm(residual))``, then ``F.max_pool2d(.,
+    *pool)``: the tail as the modules compute it on their layers' outputs,
+    and the oracle of the ``local_epilogue`` kernel. ``residual`` None: no
+    sum; ``residual_norm`` None: the residual is added as it is; ``pool``:
+    (kernel, stride, padding) or None."""
+    y = norm(y)
+    if residual is not None:
+        y = y + (residual if residual_norm is None else residual_norm(residual))
+    y = smish(y)
+    return y if pool is None else F.max_pool2d(y, *pool)
 
 
-class Smish(nn.Module):
-    def forward(self, x):
-        return smish(x)
+def tail(layer, x, norm, skip=None, pool=None):
+    """``smish(norm(layer(x)) + skip)``, then a max-pool: a layer and its
+    tail. ``skip``: None, a tensor added as it is, or (layer, input, norm)
+    of a residual branch; ``pool``: (kernel, stride, padding) or None. The
+    kernel where ``fuses`` holds for x and the modules, else
+    ``local_epilogue_plain``."""
+    branch = isinstance(skip, tuple)
+    if fuses(x, layer, norm, *(skip[0::2] if branch else ())):
+        return local_epilogue(layer, x, norm, skip, pool)
+    residual, residual_norm = skip, None
+    if branch:
+        residual, residual_norm = skip[0](skip[1]), skip[2]
+    return local_epilogue_plain(layer(x), norm, residual, residual_norm, pool)
 
 
 class ResidualBlock(nn.Module):
@@ -56,9 +77,11 @@ class ResidualBlock(nn.Module):
             self.downsample = nn.Sequential(Conv2d(in_features, features, 1),
                                             BatchNorm2d(features))
 
-    def forward(self, x):
-        residual = x if self.downsample is None else self.downsample(x)
-        return smish(self.conv2(self.conv1(x)) + residual)
+    def forward(self, x, pool=None):
+        """``pool``: (kernel, stride, padding) of a max-pool after the block."""
+        h = tail(self.conv1[0], x, self.conv1[1])
+        skip = x if self.downsample is None else (self.downsample[0], x, self.downsample[1])
+        return tail(self.conv2[0], h, self.conv2[1], skip, pool)
 
 
 class LocalStage(nn.Module):
@@ -84,10 +107,9 @@ class LocalStage(nn.Module):
 
     def forward(self, x):
         with span("local_stage"):
-            y = self.conv1(x.permute(0, 3, 1, 2))
-            y = F.max_pool2d(y, 3, 2, padding=1)
-            y = self.layer0(y)
-            y = F.max_pool2d(y, 3, 2, padding=1)
-            y = self.layer3(self.layer2(self.layer1(y)))
-            y = F.max_pool2d(y, 2, 2)
-            return self.fc(y)
+            y = tail(self.conv1[0], x.permute(0, 3, 1, 2), self.conv1[1], pool=(3, 2, 1))
+            y = self.layer0[0](y, pool=(3, 2, 1))
+            y = self.layer2[0](self.layer1[0](y))
+            y = self.layer3[0](y, pool=(2, 2, 0))
+            flatten, fc1, bn, _, fc2 = self.fc
+            return fc2(tail(fc1, flatten(y), bn))

@@ -28,14 +28,14 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("wedge_colors.cu", "wedge_render.cu", "flash_attn_fwd.cu",
-           "flash_attn_bwd_dkv.cu", "flash_attn_bwd_dq.cu")
+           "flash_attn_bwd_dkv.cu", "flash_attn_bwd_dq.cu", "local_epilogue.cu")
 HEADERS = ("wedge_common.cuh", "async_copy.cuh", "flash_mma.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 IMAGE_SOURCES = ("jpeg_decode.cu",)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "wedge_colors_launch": [_P, _P, _P, _I, _I, _F, _F, _P],
     "wedge_colors_smem_bytes": [_I],
@@ -44,6 +44,8 @@ _SIGNATURES = {
     "flash_attn_fwd_launch": [_P] * 5 + [_I, _I, _F, _P],
     "flash_attn_bwd_dkv_launch": [_P] * 8 + [_I, _I, _F, _P],
     "flash_attn_bwd_dq_launch": [_P] * 7 + [_I, _I, _F, _P],
+    "local_epilogue_launch": [_P] * 6 + [_D] + [_P] * 6 + [_D, _P, ctypes.c_longlong]
+                             + [_I] * 8 + [_P],
 }
 _IMAGE_SIGNATURES = {
     "jpeg_info": [ctypes.c_char_p, ctypes.c_size_t, _I] + [ctypes.POINTER(_I)] * 3,

@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 From the repository root, on a machine with one CUDA card and the CUDA
-toolkit (``nvcc``). It builds the five kernels from ``csrc/`` (the two wedge
-kernels and flash attention's forward, dK/dV and dQ), prints ptxas's
+toolkit (``nvcc``). It builds the six kernels from ``csrc/`` (the two wedge
+kernels, flash attention's three and the CNN's tail), prints ptxas's
 registers, shared memory and spills of the three tensor-core flash kernels
 and of both wedge kernels, fails if a flash kernel's SASS holds no
 tensor-core instruction, holds each kernel against its plain PyTorch
 version at the shapes of the path that runs it and on degenerate or ragged
-inputs (the wedge kernels also at the 587x587 path's chunk shapes), and
+inputs (the wedge kernels also at the 587x587 path's chunk shapes; the
+CNN's tail at its ten junctions, checked on every serving path to launch
+ten times a float32 LocalStage forward and never in bfloat16), and
 drives the port with seeded random full-width weights: it serves a few
 147x147 pairs through the estimators (densify none, w and pp, the last
 through the depth-completion U-Net), in float32 and with the networks in
@@ -77,7 +79,9 @@ from blurry_edges_tpu_torch.eval.pipeline import (  # noqa: E402
     fold_outputs, make_batched_depth_estimator, make_depth_estimator)
 from blurry_edges_tpu_torch.models.layers import set_compute_dtype  # noqa: E402
 from blurry_edges_tpu_torch.models.global_stage import GlobalStage  # noqa: E402
+from blurry_edges_tpu_torch.models.local_stage import local_epilogue_plain  # noqa: E402
 from blurry_edges_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from blurry_edges_tpu_torch.ops import local_epilogue as le  # noqa: E402
 from blurry_edges_tpu_torch.ops import wedge_cuda  # noqa: E402
 from blurry_edges_tpu_torch.ops._build import load_library, sass  # noqa: E402
 from blurry_edges_tpu_torch.ops.dfd import DfDSolver  # noqa: E402
@@ -91,6 +95,8 @@ from blurry_edges_tpu_torch.train.optim import make_optimizer, xavier_reinit  # 
 from blurry_edges_tpu_torch.utils.device import float32_precision  # noqa: E402
 from blurry_edges_tpu_torch.utils.seeding import fold_in  # noqa: E402
 from blurry_edges_tpu_torch.models.weights import random_modules  # noqa: E402
+from tests.local_epilogue_cases import (  # noqa: E402
+    JUNCTIONS, biased, conv_biases, junction, kernel_errors)
 
 SEED = 0
 N_PAIRS = 4
@@ -259,6 +265,94 @@ def time_wedge(inp, case, patch_cfg, dfd) -> dict:
         out[name, case, "warm"] = cuda_ms(fn, 50)
         out[name, case, "cold"] = cuda_ms_cold(fn, 20)
     return out
+
+
+def epilogue_floats(name: str) -> int:
+    """Floats a patch that a LocalStage junction's tail reads and writes at
+    least: its layer's output (and the residual) once, the next layer's
+    input once. The ten junctions sum to 242,304."""
+    C, side, res, pool = JUNCTIONS[name]
+    hw = side * side if side else 1
+    out = hw if pool is None else ((side + 2 * pool[2] - pool[0]) // pool[1] + 1) ** 2
+    return C * (hw * (2 if res else 1) + out)
+
+
+def check_epilogue(dev) -> dict:
+    """The local_epilogue kernel at each of the ten junctions at a 147x147
+    pair's 8,192 patches and 4 pairs' (a 587x587 chunk's) 32,768, against
+    the plain chain: with fresh BatchNorm statistics (the benchmark's
+    weights) equal to it to the bit; with random ones Smish and the pool
+    equal to the bit on the kernel's own BatchNorm, which lies within 2
+    float32 ulps of the size it works at from the exact one (sums 6). Then
+    the device times at 8,192 patches, the kernel's (with the convolutions'
+    biases, as the path runs it), the plain chain's with the bias adds it
+    replaces and without them, and the kernel's sum over the junctions at
+    each block size TILE_FLOATS can take."""
+    errs = {"exact": 0.0, "cudnn": 0.0, "cudnn_exact": 0.0}
+    ms, plain_ms, plain_nobias_ms, by_tile = {}, {}, {}, {}
+    for n in (8192, 32768):
+        for trivial in (True, False):
+            g = torch.Generator(device=dev).manual_seed(SEED + n + trivial)
+            for name in JUNCTIONS:
+                a = junction(name, n, g, dev, trivial)
+                x, norm, r, rn, pool = (a[k] for k in ("x", "norm", "residual",
+                                                       "residual_norm", "pool"))
+                b = conv_biases(a, g)
+                rb = b.get("residual_bias")
+                with torch.no_grad():
+                    got = le.local_epilogue_cuda(x, norm, r, rn, pool, **b)
+                    plain = local_epilogue_plain(biased(x, b["bias"]), norm, biased(r, rb), rn,
+                                                 pool)
+                    equal, e = kernel_errors(got, a, b)
+                    case = f"{name} at {n} patches, {'fresh' if trivial else 'random'} statistics"
+                    check(equal, f"local_epilogue {case}: Smish or the pool off its BatchNorm")
+                    check(e["exact"] <= (6.0 if r is not None else 2.0),
+                          f"local_epilogue {case}: {e['exact']} ulps from the exact BatchNorm")
+                    if trivial:
+                        check(torch.equal(got, plain), f"local_epilogue {case}: not the plain "
+                              "chain to the bit")
+                    for k in errs:
+                        errs[k] = max(errs[k], e[k])
+                    if n == 8192 and not trivial:
+                        ms[name] = cuda_ms(lambda: le.local_epilogue_cuda(x, norm, r, rn, pool,
+                                                                          **b), 10)
+                        plain_ms[name] = cuda_ms(lambda: local_epilogue_plain(
+                            biased(x, b["bias"]), norm, biased(r, rb), rn, pool), 10)
+                        plain_nobias_ms[name] = cuda_ms(
+                            lambda: local_epilogue_plain(x, norm, r, rn, pool), 10)
+                        chosen = le.TILE_FLOATS
+                        try:
+                            for tile in (4096, 8192, 16384, 32768):
+                                le.TILE_FLOATS = tile
+                                by_tile[name, tile] = cuda_ms(lambda: le.local_epilogue_cuda(
+                                    x, norm, r, rn, pool, **b), 10)
+                        finally:
+                            le.TILE_FLOATS = chosen
+                del a, x, r, got, plain
+                torch.cuda.empty_cache()
+    tiles = sorted({t for _, t in by_tile})
+    return dict(errs=errs, ms=ms, plain_ms=plain_ms, plain_nobias_ms=plain_nobias_ms,
+                by_tile={t: sum(by_tile[k, t] for k in JUNCTIONS) for t in tiles})
+
+
+@contextlib.contextmanager
+def counting_epilogue(model, into: dict, path: str, launches_per_forward: int):
+    """Counts the local_epilogue kernel's launches and ``model``'s forwards
+    over the block into ``into[path]``, and checks
+    ``launches_per_forward`` launches a forward (10 for a float32 CNN, one
+    a junction; 0 for a bfloat16 one)."""
+    forwards = []
+    hook = model.register_forward_hook(lambda *args: forwards.append(1))
+    le.reset_launch_counts()
+    try:
+        yield
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    into[path] = dict(launches=le.launch_counts()["local_epilogue"], forwards=len(forwards))
+    check(forwards and into[path]["launches"] == launches_per_forward * len(forwards),
+          f"{path}: local_epilogue launches {into[path]}, want {launches_per_forward} a "
+          "LocalStage forward")
 
 
 def compare_colors(got, want):
@@ -1745,7 +1839,7 @@ def main() -> int:
     # 1. build: every source by its own nvcc, all started together
     lib = load_library()
     regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
-    print(f"build: {lib.build_seconds:.2f} s for the five kernels of "
+    print(f"build: {lib.build_seconds:.2f} s for the six kernels of "
           f"{len(lib.log.split('== ')) - 1} sources -> {lib.path.name}; ptxas: {regs}")
     for name, source in TENSOR_CORE_KERNELS.items():
         print(f"ptxas {name} ({source}): {ptxas_line(lib.log, source)}")
@@ -1843,6 +1937,13 @@ def main() -> int:
             print(f"kernels flash_fwd, flash_bwd_dkv, flash_bwd_dq vs plain [{shape}]: "
                   f"max|diff| " + ", ".join(f"{k} {e:.3g}" for k, e in case.items()) + " ok")
 
+    # the LocalStage's tail kernel at the ten junctions, 8,192 and 32,768 patches
+    ep = check_epilogue(dev)
+    print("kernel local_epilogue vs plain [10 junctions x 8,192 and 32,768 patches]: fresh "
+          "statistics equal to the bit; random ones in float32 ulps of the size, kernel from "
+          f"exact {ep['errs']['exact']:.3f}, from cuDNN's BatchNorm {ep['errs']['cudnn']:.3f}, "
+          f"cuDNN's from exact {ep['errs']['cudnn_exact']:.3f} ok")
+
     # 3. serving: each path's launches counted from 0 just before it
     single = {d: make_depth_estimator(mods, patch_cfg, grid, cam, densify=d,
                                       rho_prime=RHO_PRIME, device=dev)
@@ -1854,20 +1955,23 @@ def main() -> int:
     shapes = dict(global_image=(2, H, H, 3), global_shpd=(H, H, 3), global_refoc=(H, H, 3),
                   global_bndry=(H, H), global_depth=(H, H), confidence=(H, H),
                   depth_final=(H, H))
-    outs, out_b, launches_by_path = {}, {}, {}
+    # local_epilogue's launches and the LocalStage's forwards by path
+    outs, out_b, launches_by_path, le_by_path = {}, {}, {}, {}
     for d, fn in single.items():
         wedge_cuda.reset_launch_counts()
-        outs[d] = [fn(p) for p in pairs]
+        with counting_epilogue(mods.local_model, le_by_path, f"single_{d}", 10):
+            outs[d] = [fn(p) for p in pairs]
         torch.cuda.synchronize()
         launches_by_path[f"single_{d}"] = wedge_cuda.launch_counts()
     for d, fn in batched.items():
         wedge_cuda.reset_launch_counts()
-        out_b[d] = fn(np.stack(pairs))
+        with counting_epilogue(mods.local_model, le_by_path, f"batched_{d}", 10):
+            out_b[d] = fn(np.stack(pairs))
         torch.cuda.synchronize()
         launches_by_path[f"batched_{d}"] = wedge_cuda.launch_counts()
     print(f"serving: single-pair paths, {N_PAIRS} calls each, and batched paths, 1 call of "
           f"{N_PAIRS} pairs each (densify {', '.join(map(str, DENSIFY))}): launches "
-          f"{launches_by_path}")
+          f"{launches_by_path}; local_epilogue launches and LocalStage forwards {le_by_path}")
     # once a call: a single-pair call is one pair, the batched call's one
     # launch covers its 4 pairs; the pp paths as the others
     for path, got in launches_by_path.items():
@@ -1992,11 +2096,13 @@ def main() -> int:
                  for d in DENSIFY}
     for d in DENSIFY:
         wedge_cuda.reset_launch_counts()
-        res16 = [single16[d](p) for p in pairs]
+        with counting_epilogue(mods16.local_model, le_by_path, f"bf16_single_{d}", 0):
+            res16 = [single16[d](p) for p in pairs]
         torch.cuda.synchronize()
         launches_by_path[f"bf16_single_{d}"] = wedge_cuda.launch_counts()
         wedge_cuda.reset_launch_counts()
-        res16_b = batched16[d](np.stack(pairs))
+        with counting_epilogue(mods16.local_model, le_by_path, f"bf16_batched_{d}", 0):
+            res16_b = batched16[d](np.stack(pairs))
         torch.cuda.synchronize()
         launches_by_path[f"bf16_batched_{d}"] = wedge_cuda.launch_counts()
         check(launches_by_path[f"bf16_single_{d}"] == {"wedge_colors": N_PAIRS,
@@ -2045,7 +2151,8 @@ def main() -> int:
         for d in DENSIFY:
             args.densify = d
             wedge_cuda.reset_launch_counts()
-            with blanking(pipe, "make_depth_estimator", 2):
+            with blanking(pipe, "make_depth_estimator", 2), \
+                    counting_epilogue(mods.local_model, le_by_path, f"run_eval_{d}", 10):
                 res, log = run_loop(pipe.run_eval, args, mods, device=dev)
             launches_by_path[f"run_eval_{d}"] = wedge_cuda.launch_counts()
             check(launches_by_path[f"run_eval_{d}"] == {"wedge_colors": 4, "wedge_render": 4},
@@ -2053,7 +2160,8 @@ def main() -> int:
             eval_logs[f"run_eval_{d}"] = (check_eval_log(f"run_eval {d}", res, log, 3, 1), res)
         args = get_args("eval", big=True, argv=["--data_path", str(root / "t587")])
         wedge_cuda.reset_launch_counts()
-        with blanking(pipe_big, "make_big_depth_estimator", 2):
+        with blanking(pipe_big, "make_big_depth_estimator", 2), \
+                counting_epilogue(mods.local_model, le_by_path, "run_eval_big", 10):
             res, log = run_loop(pipe_big.run_eval_big, args, mods, device=dev)
         launches_by_path["run_eval_big"] = wedge_cuda.launch_counts()
         per_call = -(-N_BLOCKS // args.block_chunk)
@@ -2288,7 +2396,10 @@ def main() -> int:
         # the hooks see the nn.Linear layers; add each layer's packed q/k/v
         # projection (a functional linear) and its q.k^T and probs.v
         per_layer = 2 * L * d_model * 3 * d_model + 4 * L * L * d_model
-        flops = {"local_cnn": matmul_flops(mods.local_model, flat),
+        # the CNN on the meta device, where its layers run as modules: on
+        # the card its convolutions run inside ops.local_epilogue, unhooked
+        flops = {"local_cnn": matmul_flops(copy.deepcopy(mods.local_model).to("meta"),
+                                           flat.to("meta")),
                  "global_stage": matmul_flops(gm, src) + per_layer * n_layers,
                  "unet": matmul_flops(mods.unet_model, depth_in)}
     print("rate of the models' matmuls and convolutions: " + ", ".join(
@@ -2347,8 +2458,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         wedge_cuda.reset_launch_counts()
         t0 = time.perf_counter()
-        big_out[c] = est(pair587)
-        torch.cuda.synchronize()
+        with counting_epilogue(mods.local_model, le_by_path, f"big_587_chunk{c}", 10):
+            big_out[c] = est(pair587)
         secs = time.perf_counter() - t0
         launches_by_path[f"big_587_chunk{c}"] = wedge_cuda.launch_counts()
         want_n = -(-N_BLOCKS // c)
@@ -2362,7 +2473,8 @@ def main() -> int:
         check((big_out[c]["depth_final"] > 0).any().item(), "587x587: no depth predicted")
         print(f"time 587x587 pair, float32, block_chunk {c}: {secs:.3f} s, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-              f"{launches_by_path[f'big_587_chunk{c}']} [{card}]")
+              f"{launches_by_path[f'big_587_chunk{c}']}, local_epilogue "
+              f"{le_by_path[f'big_587_chunk{c}']} [{card}]")
         del est
     for k in big_out[BLOCK_CHUNK]:
         dd = (big_out[BLOCK_CHUNK][k] - big_out[OTHER_CHUNK][k]).abs().flatten()
@@ -2445,6 +2557,28 @@ def main() -> int:
             max_abs_err=errs[name], ms=f_ms[name], plain_ms=f_plain[name],
             bound_ms=bound, bound_by=bound_by, bound_fp32_ms=f_bound[name]["fp32"][0],
             library_ms=f_lib[name]))
+    # the LocalStage's tail: bound by the bytes of its ten junctions at 8,192 patches
+    le_bound = {name: 8192 * epilogue_floats(name) * 4 / HBM_BYTES_PER_S * 1e3
+                for name in JUNCTIONS}
+    le_ms, le_plain = sum(ep["ms"].values()), sum(ep["plain_ms"].values())
+    print("time local_epilogue at 8,192 patches by junction (ms): " + ", ".join(
+        f"{name} {ep['ms'][name]:.4f} ({le_bound[name] / ep['ms'][name]:.1%} of its bound "
+        f"{le_bound[name]:.4f}; plain {ep['plain_ms'][name]:.4f})" for name in JUNCTIONS)
+        + f"; the ten {le_ms:.4f} ms against a bound of {sum(le_bound.values()):.4f} "
+        f"({sum(le_bound.values()) / le_ms:.1%}), plain {le_plain:.4f} (without the bias adds "
+        f"{sum(ep['plain_nobias_ms'].values()):.4f}); by TILE_FLOATS (chosen {le.TILE_FLOATS}): "
+        + ", ".join(f"{t} {v:.4f}" for t, v in ep["by_tile"].items()) + f" [{card}]")
+    kernels.append(dict(
+        name="local_epilogue", route="cuda", source="blurry_edges_tpu_torch/csrc/local_epilogue.cu",
+        replaces=None, reached_by="blurry_edges_tpu_torch/models/local_stage.py::tail",
+        launches=sum(c["launches"] for c in le_by_path.values()),
+        launches_by_path={path: c["launches"] for path, c in le_by_path.items()},
+        forwards_by_path={path: c["forwards"] for path, c in le_by_path.items()},
+        max_ulps=ep["errs"], ms=le_ms, ms_by_case=ep["ms"],
+        ms_by_tile_floats=ep["by_tile"], plain_ms=le_plain,
+        plain_without_bias_ms=sum(ep["plain_nobias_ms"].values()),
+        bound_ms=sum(le_bound.values()), bound_ms_by_case=le_bound, bound_by="bytes",
+        library_ms=None))
     print(f"total: {time.perf_counter() - t_start:.1f} s after start-up, "
           f"build {lib.build_seconds:.2f} s")
     print(card)
