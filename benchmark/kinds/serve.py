@@ -100,7 +100,6 @@ def run(ctx) -> dict:
     setup_peak = torch.cuda.max_memory_allocated() if cuda else 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    timer = tracing.LayerTimer(nets) if ctx.trace and cuda else None
     lat, answers, failed = [], [], 0
     t_w = time.perf_counter()
     setup_s = t_w - ctx.t_start
@@ -116,8 +115,6 @@ def run(ctx) -> dict:
     window_s = time.perf_counter() - t_w
     rec = dict(setup_s=setup_s, window_s=window_s, latencies_s=lat, pairs=batch * len(lat),
                dtype=cfg["precision"])
-    if timer:
-        rec["layer_ms_per_pair"] = {k: v / max(rec["pairs"], 1) for k, v in timer.close().items()}
     if ctx.trace:
         rec["flops_per_pair"] = counts.serve_flops_per_pair(cfg)
         rec["launch_shapes"] = launch_shapes(cfg, batch)

@@ -11,6 +11,10 @@ trainer's own sync. Traffic parameters: ``batch``, ``attn_impl``,
 ``first_steps``, ``profile_steps``; the configuration's ``train`` block
 gives the set's size, the learning rate and the loss weights.
 
+A traced run profiles ``profile_steps`` steps after the window, then one
+eager step (``TrainStep.eager``) on its own, whose stage spans a replayed
+graph does not open; the memory peak is read before it.
+
 After the window the reference repeats the first steps from the same
 weights, rows and seeds, and the losses, the first gradients and the
 parameters' change over those steps are compared."""
@@ -25,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark import judge, tracing
+from benchmark import judge, spans, tracing
 from benchmark.counts import models as counts
 from benchmark.inputs.trainset import make_trainset
 from benchmark.inputs.weights import make_weights
@@ -134,6 +138,14 @@ def run(ctx) -> dict:
             rec["breakdown"] = {k: rec["trace"][k] for k in ("device_ops", "idle_gaps")}
     rec["peak_window_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
     rec["device"] = device_record(ctx, rec.get("trace"), max(setup_peak, rec["peak_window_bytes"]))
+    if rec.get("trace") and hasattr(step, "eager"):
+        # a replayed graph opens no stage spans: keep the replays' spans, then
+        # profile one eager step on its own for the stages'
+        rec["spans"] = spans.summary()
+        b = next(more)
+        rec["eager_spans"] = spans.profiled(
+            lambda: float(step.eager(gather_rows(data, 0, rows(b), mesh), gammas,
+                                     fold_in(epoch_seed, b))))
 
     # the check: the program's state freed, then the reference's first steps
     first_rows = [rows(b) for b in range(n_first)]

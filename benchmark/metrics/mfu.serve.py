@@ -1,4 +1,4 @@
-"""The networks' FLOPs a pair (``counts.models``) times the hooked
+"""The networks' FLOPs a pair (``counts.models``) times the traced run's
 window's pairs a second, over the configuration's peak, in %."""
 
 from benchmark.counts.peaks import ops_per_s

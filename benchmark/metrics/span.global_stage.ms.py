@@ -1,6 +1,5 @@
 """Device self milliseconds a pair of the program's `global_stage` span
-(GlobalStage.forward), in the profiled requests: the twin, inside the
-program, of the hooks' global_stage.ms.serve."""
+(GlobalStage.forward), in the profiled requests."""
 
 from benchmark.spans import per_pair
 

@@ -1,6 +1,5 @@
 """Device self milliseconds a pair of the program's `local_stage` span
-(LocalStage.forward), in the profiled requests: the twin, inside the
-program, of the hooks' local_stage.ms.serve."""
+(LocalStage.forward), in the profiled requests."""
 
 from benchmark.spans import per_pair
 

@@ -1,6 +1,5 @@
 """Device self milliseconds a pair of the program's `unet` span
-(UNet.forward, the pp densify), in the profiled requests: the twin, inside
-the program, of the hooks' unet.ms.serve."""
+(UNet.forward, the pp densify), in the profiled requests."""
 
 from benchmark.spans import per_pair
 

@@ -95,7 +95,7 @@ def test_metrics_for_selects_by_cell():
     e2e = {x["name"] for x in harness.metrics_for(m, "be147.train", False)}
     assert e2e == {"train_step_ms", "setup_s"}
     layer = {x["name"] for x in harness.metrics_for(m, "be587.serve", True)}
-    assert "unet.ms.serve" not in layer and "mfu.serve" in layer and "mfu.train" not in layer
+    assert "span.unet.ms" not in layer and "mfu.serve" in layer and "mfu.train" not in layer
     for x in m["per_layer"]:                       # each lists only cells reporting its metric
         reporting = {c for c in x["workloads"]
                      if x["moves"] in {e["name"] for e in harness.metrics_for(m, c, False)}}

@@ -1,7 +1,5 @@
-"""The benchmark's spans and its reading of the device trace.
+"""The benchmark's reading of the device trace.
 
-``LayerTimer``: CUDA events on forward pre- and post-hooks of the modules
-it is given, the benchmark's own spans around calls into each layer.
 ``profile``: ``torch.profiler`` over a short steady sub-window; returns the
 kernels' durations by name, the device's busy time (the union of every
 device activity's interval), the sub-window's length, the device
@@ -14,41 +12,6 @@ from __future__ import annotations
 import time
 
 import torch
-
-
-class LayerTimer:
-    """Summed device milliseconds of each named module's forward calls."""
-
-    def __init__(self, modules: dict):
-        self.spans = {name: [] for name in modules}
-        self.handles = []
-        for name, mod in modules.items():
-            self.handles.append(mod.register_forward_pre_hook(self._start(name)))
-            self.handles.append(mod.register_forward_hook(self._end(name)))
-
-    @staticmethod
-    def _mark():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def _start(self, name):
-        def hook(mod, args):
-            self.spans[name].append([self._mark(), None])
-        return hook
-
-    def _end(self, name):
-        def hook(mod, args, out):
-            self.spans[name][-1][1] = self._mark()
-        return hook
-
-    def close(self) -> dict:
-        """Remove the hooks; {name: total ms}, after a synchronize."""
-        for h in self.handles:
-            h.remove()
-        torch.cuda.synchronize()
-        return {name: sum(a.elapsed_time(b) for a, b in spans)
-                for name, spans in self.spans.items()}
 
 
 def _merge(intervals):
